@@ -1,0 +1,116 @@
+"""The port stands alone: uvg266_tpu_torch and chip_smoke.py import neither
+JAX nor the JAX package, and the kernel wrappers never fall back.
+
+The import check runs in a subprocess, since tests/conftest.py imports jax:
+there ``sys.modules["jax"]`` and ``sys.modules["uvg266_tpu"]`` are None, so
+any import of either (by exact name, or of a submodule) fails.
+"""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import uvg266_tpu_torch
+from uvg266_tpu_torch import kernels
+from uvg266_tpu_torch.ops import intra_batch as ib
+from uvg266_tpu_torch.ops import rd_cost as rd
+from uvg266_tpu_torch.ops import tables as tb
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(os.path.abspath(uvg266_tpu_torch.__file__))
+
+_BLOCKED = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["uvg266_tpu"] = None
+import numpy as np
+import uvg266_tpu_torch
+for m in pkgutil.walk_packages(uvg266_tpu_torch.__path__, "uvg266_tpu_torch."):
+    if not m.name.rsplit(".", 1)[-1].startswith("_"):    # built libraries
+        importlib.import_module(m.name)
+from uvg266_tpu_torch.cfg import Config
+from uvg266_tpu_torch.control.encoder import Encoder, FramePlanes
+from uvg266_tpu_torch.oracle.decoder import decode_au
+cfg = Config(width=64, height=64, qp=27, gop_len=0, intra_period=1,
+             sao_type=3, alf_type=0, deblock_enable=True, rdoq_enable=False,
+             signhide_enable=True, dep_quant=False, wpp=False)
+rng = np.random.default_rng(0)
+y = rng.integers(0, 256, (64, 64)).astype(np.int32)
+u = rng.integers(0, 256, (32, 32)).astype(np.int32)
+enc = Encoder(cfg, device="cpu")
+out = enc.feed(FramePlanes(y, u, u.copy())) + enc.flush()
+au, rec, fs = out[0][0], out[0][1], out[0][2]
+dec, info = decode_au(au, cfg, enc.ctrl, fs)
+assert info["checksum_ok"] is True and (dec.y == rec.y).all()
+assert not any(k == "jax" or k.startswith(("jax.", "uvg266_tpu."))
+               for k, v in sys.modules.items() if v is not None)
+print("ISOLATED", len(au))
+"""
+
+
+def test_port_runs_without_jax_or_the_reference():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "ISOLATED" in r.stdout
+
+
+def _sources():
+    for dirpath, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_import_of_jax_or_the_reference(path):
+    """Also catches imports inside functions, which the subprocess above
+    only reaches on the paths it runs."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "uvg266_tpu"), (path, n)
+
+
+def test_wrappers_raise_instead_of_falling_back():
+    """A tensor on a device with no kernel, and a CUDA launch where no card
+    (or no nvcc) is present, raise; nothing falls back to the plain path."""
+    meta = dict(device="meta", dtype=torch.int32)
+    tabs = tb.tables_to_torch(tb.class_tables(8, 8, 8), "meta")
+    ft = tb.tables_to_torch({"wts": tb.FAST_COEFF_WTS[22].astype("float32"),
+                             "mode_bits": tb.MODE_BITS}, "meta")
+    calls = [
+        lambda: ib.refs_blocks_grid(torch.empty((16, 16), **meta), 8, 8,
+                                    (0, 0, 8, 8, 2, 2)),
+        lambda: ib.predict67(torch.empty((4, 780), **meta), tabs),
+        lambda: ib.satd67(torch.empty((4, 67, 8, 8), **meta),
+                          torch.empty((4, 8, 8), **meta)),
+        lambda: rd.rd_cost(torch.empty((4, 67, 8, 8), **meta),
+                           torch.empty((4, 8, 8), **meta),
+                           torch.empty((4, 67), **meta), 22, 57.9,
+                           ft["wts"], ft["mode_bits"], tabs, 8),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no kernel for device"):
+            call()
+    if not torch.cuda.is_available():
+        for name in kernels.SIGNATURES:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                kernels.launch(name, torch.device("cuda"))
+        assert all(v == 0 for v in kernels.LAUNCHES.values())

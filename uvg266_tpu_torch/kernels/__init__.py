@@ -1,0 +1,158 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. It is compiled on first
+use by ``nvcc`` into a shared library of its own, cached under ``build/``
+by a hash of its sources and flags, and loaded with ``ctypes``. ``build()``
+starts one ``nvcc`` per source, all at once. There is no CPU fallback
+here: a wrapper reaches ``launch`` only for a CUDA tensor, and ``launch``
+raises when the kernel cannot be built or launched.
+
+Every C entry takes its tensors as raw device pointers, enqueues its kernel
+on the stream it is given (PyTorch's current stream) without synchronising,
+and returns ``cudaGetLastError()``. ``LAUNCHES`` counts the successful
+launches per kernel, so a run can show that its path went through them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+_HEADERS = ("common.cuh",)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel name -> argtypes of its C entry (same name), the stream last
+SIGNATURES = {
+    # src, F, H, W, w, h, x0, y0, sx, sy, gx, gy, refs, blocks
+    "refs_blocks_grid": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P],
+    # refs, B, w, h, max_pix, K, W, pdpc_wl, pdpc_sidx, hv_wl, hv_sidx,
+    # needs_clip, pdpc_on, hv_on, hv_topleft, pd_wl, pd_wt, preds
+    "predict67": [_P, _I, _I, _I, _I] + [_P] * 13 + [_P],
+    # preds, src, B, w, h, out
+    "satd67": [_P, _P, _I, _I, _I, _P, _P],
+    # preds, src, satds, B, w, h, mat_w, mat_h, wts, mode_bits,
+    # bitdepth, q_bits, scale, add, iscale, dq_shift, lam, best, rd, satd
+    "rd_cost": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+}
+LAUNCHES = dict.fromkeys(SIGNATURES, 0)
+_LIBS: dict = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (f"{name}.cu",) + _HEADERS:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD, f"{name}_{h.hexdigest()[:16]}.so")
+
+
+def build(names=None) -> dict:
+    """Compile the listed kernels (default: all) that are not cached yet,
+    one nvcc per source, all started together. Returns the seconds each
+    build took (0.0 when cached); raises with nvcc's output on failure."""
+    names = list(SIGNATURES if names is None else names)
+    todo = [n for n in names if not os.path.exists(lib_path(n))]
+    secs = dict.fromkeys(names, 0.0)
+    if not todo:
+        return secs
+    nvcc = _nvcc()
+    if not os.path.exists(nvcc):
+        raise RuntimeError(f"nvcc not found (looked for {nvcc}): the CUDA "
+                           "kernels cannot be built")
+    os.makedirs(BUILD, exist_ok=True)
+    procs = []
+    for n in todo:
+        out = lib_path(n)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        p = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp,
+                              os.path.join(CSRC, f"{n}.cu")],
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        procs.append((n, p, tmp, out, time.perf_counter()))
+    failed = []
+    for n, p, tmp, out, t0 in procs:
+        log, _ = p.communicate()
+        secs[n] = time.perf_counter() - t0
+        with open(out + ".log", "w") as fh:
+            fh.write(log)
+        if p.returncode != 0:
+            failed.append(f"nvcc failed for {n}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return secs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register and shared-memory report) of the
+    cached build of ``name``."""
+    with open(lib_path(name) + ".log") as fh:
+        return fh.read()
+
+
+def _load(name: str):
+    if name not in _LIBS:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"kernel {name}: no CUDA device to launch on")
+        build([name])
+        lib = ctypes.CDLL(lib_path(name))
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _LIBS[name] = (fn, err)
+    return _LIBS[name]
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Enqueue kernel ``name`` on the current stream of ``device``; raise
+    if the launch was refused. Counts the launch."""
+    fn, err = _load(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel {name}: {err(rc).decode()} (error {rc})")
+    LAUNCHES[name] += 1
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device all ``tensors`` lie on, contiguous; raises
+    otherwise (a wrapper never falls back to its plain version)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor not contiguous")
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {dev}")
+    return dev

@@ -1,0 +1,575 @@
+"""Batched intra prediction: all 67 regular modes for a batch of blocks.
+
+Port of uvg266_tpu/ops/intra_batch.py. The host part (static mode tables,
+reference packing, single-block numpy prediction, grid detection) is a
+verbatim copy of the reference's. The three device functions of the
+all-intra frame search each come as a plain PyTorch version plus a wrapper
+that launches the hand-written CUDA kernel (csrc/) for tensors on the card:
+
+- K1 ``refs_blocks_grid``: reference lines and source blocks on a static
+  position grid (reference: make_refs_blocks_grid_fn);
+- K2 ``predict67``: all 67 modes (reference: make_predict_matmul_fn, the
+  bit-exact twin of the gather form make_predict_fn);
+- K3 ``satd67``: per-mode SATD (reference: make_satd67_fn).
+
+A wrapper given CPU tensors computes the plain version; given CUDA tensors
+it launches the kernel or raises. Nothing falls back from one to the other.
+
+Unified reference vector layout per block (length 4*REF_LEN):
+  [ top_unfiltered | left_unfiltered | top_filtered | left_filtered ]
+index 0 of each section is the top-left sample.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .intra import (
+    CUBIC_FILTER,
+    HOR_VER_DIST_THRES,
+    MODEDISP2INVSAMPLEDISP,
+    MODEDISP2SAMPLEDISP,
+    PRE_SCALE,
+    IntraRefs,
+    wide_angle_correction,
+)
+
+REF_LEN = 3 * 64 + 3          # matches build_reference's max_len
+SEC_TOP, SEC_LEFT, SEC_FTOP, SEC_FLEFT = 0, 1, 2, 3
+LOG2 = {4: 2, 8: 3, 16: 4, 32: 5, 64: 6}
+NUM_MODES = 67
+
+
+def _sec(section: int, idx):
+    return section * REF_LEN + int(idx)
+
+
+@lru_cache(maxsize=None)
+def build_mode_tables(w: int, h: int, bitdepth: int = 8,
+                      is_chroma: bool = False):
+    """Static tables for all 67 modes of a w x h PU (PU == CU)."""
+    log2_w, log2_h = LOG2[w], LOG2[h]
+    K = np.zeros((NUM_MODES, h, w, 4), dtype=np.int32)    # gather indices
+    W = np.zeros((NUM_MODES, h, w, 4), dtype=np.int32)    # <<6-domain weights
+    needs_clip = np.zeros((NUM_MODES,), dtype=bool)
+    # gradient PDPC (positive angular): out += (wl*(side - out) + 32) >> 6
+    pdpc_on = np.zeros((NUM_MODES,), dtype=bool)
+    pdpc_wl = np.zeros((NUM_MODES, h, w), dtype=np.int32)
+    pdpc_sidx = np.zeros((NUM_MODES, h, w), dtype=np.int32)
+    # pure hor/ver PDPC: out = clip(out + (wl*(side - topleft) + 32) >> 6)
+    hv_on = np.zeros((NUM_MODES,), dtype=bool)
+    hv_topleft = np.zeros((NUM_MODES,), dtype=np.int32)
+    hv_sidx = np.zeros((NUM_MODES, h, w), dtype=np.int32)
+    hv_wl = np.zeros((NUM_MODES, h, w), dtype=np.int32)
+
+    for mode in range(2, 67):
+        pred_mode = wide_angle_correction(mode, log2_w, log2_h)
+        vertical = pred_mode >= 34
+        mode_disp = pred_mode - 50 if vertical else -(pred_mode - 18)
+        sample_disp = (-1 if mode_disp < 0 else 1) * int(
+            MODEDISP2SAMPLEDISP[abs(mode_disp)])
+        frac_mode = (abs(sample_disp) & 0x1F) != 0
+        side_size_log2 = log2_h if vertical else log2_w
+        scale = min(2, side_size_log2 - int(PRE_SCALE[abs(mode_disp)]))
+
+        # reference smoothing + cubic/gauss selection (intra_predict_regular)
+        smooth = False
+        use_cubic = True
+        if not is_chroma and not (w == 4 and h == 4):
+            thres = HOR_VER_DIST_THRES[(log2_w + log2_h) >> 1]
+            dist = min(abs(pred_mode - 50), abs(pred_mode - 18))
+            if dist > thres:
+                if frac_mode:
+                    use_cubic = False
+                else:
+                    smooth = True
+        main_sec = (SEC_FTOP if smooth else SEC_TOP) if vertical else \
+                   (SEC_FLEFT if smooth else SEC_LEFT)
+        side_sec = (SEC_FLEFT if smooth else SEC_LEFT) if vertical else \
+                   (SEC_FTOP if smooth else SEC_TOP)
+
+        # work orientation: ww columns, hh rows; horizontal modes transpose
+        ww, hh = (w, h) if vertical else (h, w)
+
+        def out_pos(work_y, work_x):
+            return (work_y, work_x) if vertical else (work_x, work_y)
+
+        # extended main reference map: ext_idx[p] -> r index
+        if sample_disp < 0:
+            base = hh
+            ext_len = base + ww + 8
+            ext_idx = np.zeros(ext_len, dtype=np.int64)
+            for i in range(min(ww + 2, ext_len - base)):
+                ext_idx[base + i] = _sec(main_sec, i)
+            inv = int(MODEDISP2INVSAMPLEDISP[abs(mode_disp)])
+            for i in range(-hh, 0):
+                ext_idx[base + i] = _sec(side_sec, min((-i * inv + 256) >> 9, hh))
+        else:
+            base = 0
+            ext_len = ((sample_disp * hh) >> 5) + ww + 8
+            ext_idx = np.array([_sec(main_sec, min(i, REF_LEN - 1))
+                                for i in range(ext_len)], dtype=np.int64)
+
+        for yy in range(hh):
+            delta_pos = sample_disp * (yy + 1)
+            delta_int = delta_pos >> 5
+            delta_fract = delta_pos & 31
+            if frac_mode:
+                if not is_chroma:
+                    if use_cubic:
+                        wrow = np.asarray(CUBIC_FILTER[delta_fract])
+                    else:
+                        wrow = np.array([16 - (delta_fract >> 1),
+                                         32 - (delta_fract >> 1),
+                                         16 + (delta_fract >> 1),
+                                         delta_fract >> 1], dtype=np.int32)
+                    toff = 0
+                else:
+                    d = delta_fract
+                    wrow = np.array([2 * (32 - d), 2 * d, 0, 0], dtype=np.int32)
+                    toff = 1
+            else:
+                wrow = np.array([64, 0, 0, 0], dtype=np.int32)
+                toff = 1
+            for xx in range(ww):
+                p0 = base + delta_int + xx + toff
+                oy, ox = out_pos(yy, xx)
+                K[mode, oy, ox] = [ext_idx[min(max(p0 + t, 0), ext_len - 1)]
+                                   for t in range(4)]
+                W[mode, oy, ox] = wrow
+        needs_clip[mode] = frac_mode and not is_chroma
+
+        # --- PDPC ---
+        pdpc_ok = (w >= 4 and h >= 4)
+        if 1 < pred_mode < 67:
+            if mode_disp < 0:
+                pdpc_ok = False
+            elif mode_disp > 0:
+                pdpc_ok = pdpc_ok and scale >= 0
+        if sample_disp != 0:
+            if pdpc_ok and sample_disp > 0:
+                pdpc_on[mode] = True
+                inv = int(MODEDISP2INVSAMPLEDISP[abs(mode_disp)])
+                lim = min(3 << scale, ww)
+                for yy in range(hh):
+                    inv_angle_sum = 256
+                    for xx in range(lim):
+                        inv_angle_sum += inv
+                        oy, ox = out_pos(yy, xx)
+                        pdpc_wl[mode, oy, ox] = 32 >> ((2 * xx) >> scale)
+                        pdpc_sidx[mode, oy, ox] = _sec(
+                            side_sec, min(yy + (inv_angle_sum >> 9) + 1,
+                                          REF_LEN - 1))
+        else:
+            if pdpc_ok:
+                hv_on[mode] = True
+                sc2 = (log2_w + log2_h - 2) >> 2
+                hv_topleft[mode] = _sec(main_sec, 0)
+                for yy in range(hh):
+                    for xx in range(min(3 << sc2, ww)):
+                        oy, ox = out_pos(yy, xx)
+                        hv_wl[mode, oy, ox] = 32 >> ((2 * xx) >> sc2)
+                        hv_sidx[mode, oy, ox] = _sec(side_sec, 1 + yy)
+
+    # planar/DC PDPC weights (pdpc_planar_dc)
+    scale_pd = (log2_w + log2_h - 2) >> 2
+    xs = np.arange(w)
+    ys = np.arange(h)
+    pd_wl = (32 >> np.minimum(31, (xs * 2) >> scale_pd)).astype(np.int32)
+    pd_wt = (32 >> np.minimum(31, (ys * 2) >> scale_pd)).astype(np.int32)
+
+    return {
+        "K": K, "W": W, "needs_clip": needs_clip,
+        "pdpc_on": pdpc_on, "pdpc_wl": pdpc_wl, "pdpc_sidx": pdpc_sidx,
+        "hv_on": hv_on, "hv_topleft": hv_topleft, "hv_sidx": hv_sidx,
+        "hv_wl": hv_wl, "pd_wl": pd_wl, "pd_wt": pd_wt,
+        "w": w, "h": h, "bitdepth": bitdepth, "is_chroma": is_chroma,
+        "log2_w": log2_w, "log2_h": log2_h,
+    }
+
+
+def filtered_refs_np(top: np.ndarray, left: np.ndarray, w: int, h: int):
+    """[1 2 1]/4 smoothing over batched refs [B, REF_LEN]."""
+    rw = 2 * w + 1
+    rh = 2 * h + 1
+    t = top.astype(np.int64)
+    l = left.astype(np.int64)
+    ft = top.copy()
+    fl = left.copy()
+    fl[:, 0] = (l[:, 1] + 2 * l[:, 0] + t[:, 1] + 2) >> 2
+    ft[:, 0] = fl[:, 0]
+    fl[:, 1:rh - 1] = (l[:, :rh - 2] + 2 * l[:, 1:rh - 1] + l[:, 2:rh] + 2) >> 2
+    ft[:, 1:rw - 1] = (t[:, :rw - 2] + 2 * t[:, 1:rw - 1] + t[:, 2:rw] + 2) >> 2
+    fl[:, rh - 1] = left[:, rh - 1]
+    ft[:, rw - 1] = top[:, rw - 1]
+    return ft, fl
+
+
+def pack_refs(refs_list: list[IntraRefs], w: int, h: int) -> np.ndarray:
+    """Stack per-block references into the unified [B, 4*REF_LEN] layout."""
+    B = len(refs_list)
+    top = np.stack([r.top for r in refs_list]).astype(np.int32)
+    left = np.stack([r.left for r in refs_list]).astype(np.int32)
+    ft, fl = filtered_refs_np(top, left, w, h)
+    r = np.zeros((B, 4 * REF_LEN), dtype=np.int32)
+    r[:, SEC_TOP * REF_LEN:(SEC_TOP + 1) * REF_LEN] = top
+    r[:, SEC_LEFT * REF_LEN:(SEC_LEFT + 1) * REF_LEN] = left
+    r[:, SEC_FTOP * REF_LEN:(SEC_FTOP + 1) * REF_LEN] = ft
+    r[:, SEC_FLEFT * REF_LEN:(SEC_FLEFT + 1) * REF_LEN] = fl
+    return r
+
+
+def predict_one_np(tables, refs: IntraRefs, mode: int) -> np.ndarray:
+    """Single-block single-mode prediction via the static tables (numpy).
+
+    Bit-exact with ops.intra.predict_intra but ~20x faster (no Python
+    per-row loops) — used by the sequential reconstruction path.
+    """
+    w, h = tables["w"], tables["h"]
+    max_pix = (1 << tables["bitdepth"]) - 1
+    r = pack_refs([refs], w, h)[0].astype(np.int64)
+    if mode >= 2:
+        g = r[tables["K"][mode]]
+        out = (g * tables["W"][mode]).sum(-1)
+        out = (out + 32) >> 6
+        if tables["needs_clip"][mode]:
+            out = np.clip(out, 0, max_pix)
+        if tables["pdpc_on"][mode]:
+            side = r[tables["pdpc_sidx"][mode]]
+            out = out + ((tables["pdpc_wl"][mode] * (side - out) + 32) >> 6)
+        if tables["hv_on"][mode]:
+            side = r[tables["hv_sidx"][mode]]
+            tl = r[tables["hv_topleft"][mode]]
+            out = np.clip(out + ((tables["hv_wl"][mode] * (side - tl) + 32) >> 6),
+                          0, max_pix)
+        return np.clip(out, 0, max_pix).astype(np.int32)
+    # planar / DC
+    log2_w, log2_h = tables["log2_w"], tables["log2_h"]
+    planar_filtered = (not tables["is_chroma"]) and (w * h > 32)
+    if mode == 0:
+        tsec = SEC_FTOP if planar_filtered else SEC_TOP
+        lsec = SEC_FLEFT if planar_filtered else SEC_LEFT
+        t_w = r[tsec * REF_LEN + 1:tsec * REF_LEN + 1 + w]
+        l_h = r[lsec * REF_LEN + 1:lsec * REF_LEN + 1 + h]
+        top_right = r[tsec * REF_LEN + w + 1]
+        bottom_left = r[lsec * REF_LEN + h + 1]
+        xs1 = np.arange(1, w + 1)[None, :]
+        ys1 = np.arange(1, h + 1)[:, None]
+        hor = (l_h[:, None] << log2_w) + (top_right - l_h[:, None]) * xs1
+        ver = (t_w[None, :] << log2_h) + (bottom_left - t_w[None, :]) * ys1
+        offset = 1 << (log2_w + log2_h)
+        out = ((hor << log2_h) + (ver << log2_w) + offset) >> (1 + log2_w + log2_h)
+    else:
+        tsec, lsec = SEC_TOP, SEC_LEFT
+        s = 0
+        if w >= h:
+            s += int(r[SEC_TOP * REF_LEN + 1:SEC_TOP * REF_LEN + 1 + w].sum())
+        if w <= h:
+            s += int(r[SEC_LEFT * REF_LEN + 1:SEC_LEFT * REF_LEN + 1 + h].sum())
+        denom = (w << 1) if w == h else max(w, h)
+        dc = (s + (denom >> 1)) >> (denom.bit_length() - 1)
+        out = np.full((h, w), dc, dtype=np.int64)
+    if w >= 4 and h >= 4:
+        tt = r[tsec * REF_LEN + 1:tsec * REF_LEN + 1 + w][None, :]
+        ll = r[lsec * REF_LEN + 1:lsec * REF_LEN + 1 + h][:, None]
+        out = out + ((tables["pd_wl"][None, :] * (ll - out)
+                      + tables["pd_wt"][:, None] * (tt - out) + 32) >> 6)
+    return np.clip(out, 0, max_pix).astype(np.int32)
+
+
+def grid_of_positions(positions, w: int, h: int):
+    """Detect a raster-ordered regular grid in a position list; returns
+    (x0, y0, sx, sy, gx, gy) or None. The partition search always emits
+    such grids (full aligned grids and TT offset grids)."""
+    if not positions:
+        return None
+    xs = sorted({p[0] for p in positions})
+    ys = sorted({p[1] for p in positions})
+    gx, gy = len(xs), len(ys)
+    if gx * gy != len(positions):
+        return None
+    sx = xs[1] - xs[0] if gx > 1 else w
+    sy = ys[1] - ys[0] if gy > 1 else h
+    if sx <= 0 or sy <= 0:
+        return None
+    if any(xs[i] != xs[0] + i * sx for i in range(gx)):
+        return None
+    if any(ys[i] != ys[0] + i * sy for i in range(gy)):
+        return None
+    expect = [(xs[0] + bx * sx, ys[0] + by * sy)
+              for by in range(gy) for bx in range(gx)]
+    if expect != list(positions):
+        return None
+    return (xs[0], ys[0], sx, sy, gx, gy)
+
+
+def build_refs_grid(src: np.ndarray, positions, w: int, h: int) -> np.ndarray:
+    """Vectorized open-loop reference construction for same-size blocks.
+
+    Search-side approximation of build_reference: availability = picture
+    bounds (everything left/above), unavailable samples edge-replicated.
+    Exact reconstruction still uses the spec-exact per-block path; this
+    only feeds the batched mode search. Returns the packed [B, 4*REF_LEN]
+    layout of pack_refs.
+    """
+    B = len(positions)
+    Lt = min(3 * w + 3, REF_LEN)
+    Ll = min(3 * h + 3, REF_LEN)
+    pad = max(Lt, Ll) + 2
+    P = np.pad(src, ((1, pad), (1, pad)), mode="edge").astype(np.int32)
+    xs = np.asarray([p[0] for p in positions])
+    ys = np.asarray([p[1] for p in positions])
+    top = np.zeros((B, REF_LEN), dtype=np.int32)
+    left = np.zeros((B, REF_LEN), dtype=np.int32)
+    # top[i] = orig(y-1, x-1+i) -> P[y, x+i]
+    top[:, :Lt] = P[ys[:, None], xs[:, None] + np.arange(Lt)[None, :]]
+    # left[i] = orig(y-1+i, x-1) -> P[y+i, x]
+    left[:, :Ll] = P[ys[:, None] + np.arange(Ll)[None, :], xs[:, None]]
+    # fill tails with the last value (harmless; beyond use)
+    top[:, Lt:] = top[:, Lt - 1:Lt]
+    left[:, Ll:] = left[:, Ll - 1:Ll]
+    ft, fl = filtered_refs_np(top, left, w, h)
+    r = np.zeros((B, 4 * REF_LEN), dtype=np.int32)
+    r[:, SEC_TOP * REF_LEN:(SEC_TOP + 1) * REF_LEN] = top
+    r[:, SEC_LEFT * REF_LEN:(SEC_LEFT + 1) * REF_LEN] = left
+    r[:, SEC_FTOP * REF_LEN:(SEC_FTOP + 1) * REF_LEN] = ft
+    r[:, SEC_FLEFT * REF_LEN:(SEC_FLEFT + 1) * REF_LEN] = fl
+    return r
+
+# --- device functions K1-K3 ------------------------------------------------
+
+# elements of the largest intermediate a plain version builds per chunk of
+# blocks (the [b, 67, h, w, 4] gather of K2): bounds its CPU memory at a
+# whole 832x480 frame
+_PLAIN_CHUNK = 1 << 24
+
+
+def _chunks(n: int, per_item: int):
+    step = max(1, _PLAIN_CHUNK // max(per_item, 1))
+    for b0 in range(0, n, step):
+        yield slice(b0, min(b0 + step, n))
+
+
+def _check(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name}: expected a {ndim}-d {dtype} tensor, got "
+                         f"{t.dim()}-d {t.dtype}")
+
+
+def _grid_xy(grid, device):
+    """Raster-ordered block origins (xs, ys) [B] of a static grid."""
+    x0, y0, sx, sy, gx, gy = grid
+    xs = x0 + sx * torch.arange(gx, device=device)
+    ys = y0 + sy * torch.arange(gy, device=device)
+    return xs.repeat(gy), ys.repeat_interleave(gx)
+
+
+def _smooth_pack(top, left, w: int, h: int):
+    """[1 2 1]/4 smoothing + 4-section packing (the reference's
+    _smooth_pack, intra_batch.py:600)."""
+    rw = 2 * w + 1
+    rh = 2 * h + 1
+    ft = top.clone()
+    fl = left.clone()
+    fl[:, 1:rh - 1] = (left[:, :rh - 2] + 2 * left[:, 1:rh - 1]
+                       + left[:, 2:rh] + 2) >> 2
+    ft[:, 1:rw - 1] = (top[:, :rw - 2] + 2 * top[:, 1:rw - 1]
+                       + top[:, 2:rw] + 2) >> 2
+    f0 = (left[:, 1] + 2 * left[:, 0] + top[:, 1] + 2) >> 2
+    fl[:, 0] = f0
+    ft[:, 0] = f0
+    return torch.cat([top, left, ft, fl], dim=1)
+
+
+def refs_blocks_grid_plain(src: torch.Tensor, w: int, h: int, grid):
+    """K1, plain version. src [H, W] (or [F, H, W]) int32 -> (refs
+    [F*B, 4*REF_LEN], blocks [F*B, h, w]) int32 for the blocks of the
+    static grid (x0, y0, sx, sy, gx, gy), frames outermost. The edge-padded
+    plane of the reference is read through clamped coordinates:
+    P[r, c] = src[clamp(r - 1), clamp(c - 1)]."""
+    s = src if src.dim() == 3 else src[None]
+    F, H, W = s.shape
+    xs, ys = _grid_xy(grid, s.device)
+    B = xs.numel()
+    Lt = min(3 * w + 3, REF_LEN)
+    Ll = min(3 * h + 3, REF_LEN)
+    i = torch.arange(REF_LEN, device=s.device)[None, :]
+
+    def padded(r, c):
+        return s[:, (r - 1).clamp(0, H - 1), (c - 1).clamp(0, W - 1)]
+
+    top = padded(ys[:, None].expand(B, REF_LEN),
+                 xs[:, None] + i.clamp(max=Lt - 1))
+    left = padded(ys[:, None] + i.clamp(max=Ll - 1),
+                  xs[:, None].expand(B, REF_LEN))
+    refs = _smooth_pack(top.reshape(F * B, REF_LEN),
+                        left.reshape(F * B, REF_LEN), w, h)
+    ry = (ys[:, None, None] + torch.arange(h, device=s.device)[None, :, None])
+    cx = (xs[:, None, None] + torch.arange(w, device=s.device)[None, None, :])
+    blocks = s[:, ry.clamp(0, H - 1), cx.clamp(0, W - 1)]
+    return refs, blocks.reshape(F * B, h, w)
+
+
+def refs_blocks_grid(src: torch.Tensor, w: int, h: int, grid):
+    """K1: refs_blocks_grid_plain on the CPU, the CUDA kernel on the card."""
+    if src.device.type == "cpu":
+        return refs_blocks_grid_plain(src, w, h, grid)
+    dev = kernels.check_cuda("refs_blocks_grid", src)
+    s = src if src.dim() == 3 else src[None]
+    _check("refs_blocks_grid", s, torch.int32, 3)
+    F, H, W = s.shape
+    x0, y0, sx, sy, gx, gy = (int(v) for v in grid)
+    B = gx * gy
+    refs = torch.empty((F * B, 4 * REF_LEN), dtype=torch.int32, device=dev)
+    blocks = torch.empty((F * B, h, w), dtype=torch.int32, device=dev)
+    kernels.launch("refs_blocks_grid", dev, s.data_ptr(), F, H, W, w, h,
+                   x0, y0, sx, sy, gx, gy, refs.data_ptr(), blocks.data_ptr())
+    return refs, blocks
+
+
+def predict67_plain(refs: torch.Tensor, tables: dict) -> torch.Tensor:
+    """K2, plain version: refs [B, 4*REF_LEN] int32 -> [B, 67, h, w] int32
+    predictions, with make_predict_fn's gather arithmetic. ``tables`` is
+    ops.tables.device_tables(w, h, bitdepth, device)."""
+    w, h = tables["w"], tables["h"]
+    log2_w, log2_h = tables["log2_w"], tables["log2_h"]
+    max_pix = (1 << tables["bitdepth"]) - 1
+    K = tables["K"].long()
+    Wt = tables["W"].int()
+    needs_clip = tables["needs_clip"][None, :, None, None]
+    pdpc_on = tables["pdpc_on"][None, :, None, None]
+    pdpc_wl = tables["pdpc_wl"].int()[None]
+    pdpc_sidx = tables["pdpc_sidx"].long()
+    hv_on = tables["hv_on"][None, :, None, None]
+    hv_topleft = tables["hv_topleft"].long()
+    hv_sidx = tables["hv_sidx"].long()
+    hv_wl = tables["hv_wl"].int()[None]
+    pd_wl = tables["pd_wl"][None, None, :]
+    pd_wt = tables["pd_wt"][None, :, None]
+    apply_pd_pdpc = w >= 4 and h >= 4
+    planar_filtered = (not tables["is_chroma"]) and (w * h > 32)
+    psec_t = SEC_FTOP if planar_filtered else SEC_TOP
+    psec_l = SEC_FLEFT if planar_filtered else SEC_LEFT
+    dev = refs.device
+    xs1 = torch.arange(1, w + 1, dtype=torch.int32, device=dev)[None, None, :]
+    ys1 = torch.arange(1, h + 1, dtype=torch.int32, device=dev)[None, :, None]
+    out = torch.empty((refs.shape[0], NUM_MODES, h, w), dtype=torch.int32,
+                      device=dev)
+
+    for sl in _chunks(refs.shape[0], NUM_MODES * h * w * 4):
+        r = refs[sl]
+        ang = (r[:, K] * Wt).sum(-1, dtype=torch.int32)
+        ang = (ang + 32) >> 6
+        ang = torch.where(needs_clip, ang.clamp(0, max_pix), ang)
+        side = r[:, pdpc_sidx]
+        ang = torch.where(pdpc_on, ang + ((pdpc_wl * (side - ang) + 32) >> 6),
+                          ang)
+        side_hv = r[:, hv_sidx]
+        topleft = r[:, hv_topleft][:, :, None, None]
+        corr_hv = (hv_wl * (side_hv - topleft) + 32) >> 6
+        ang = torch.where(hv_on, (ang + corr_hv).clamp(0, max_pix), ang)
+
+        def sec(k, off, n):
+            return r[:, k * REF_LEN + off:k * REF_LEN + off + n]
+
+        t_w = sec(psec_t, 1, w)
+        l_h = sec(psec_l, 1, h)
+        top_right = r[:, psec_t * REF_LEN + w + 1][:, None, None]
+        bottom_left = r[:, psec_l * REF_LEN + h + 1][:, None, None]
+        hor = (l_h[:, :, None] << log2_w) + (top_right - l_h[:, :, None]) * xs1
+        ver = (t_w[:, None, :] << log2_h) + (bottom_left - t_w[:, None, :]) * ys1
+        planar = ((hor << log2_h) + (ver << log2_w)
+                  + (1 << (log2_w + log2_h))) >> (1 + log2_w + log2_h)
+
+        s = torch.zeros((r.shape[0],), dtype=torch.int32, device=dev)
+        if w >= h:
+            s = s + sec(SEC_TOP, 1, w).sum(-1, dtype=torch.int32)
+        if w <= h:
+            s = s + sec(SEC_LEFT, 1, h).sum(-1, dtype=torch.int32)
+        denom = (w << 1) if w == h else max(w, h)
+        dc = (s + (denom >> 1)) >> (denom.bit_length() - 1)
+        dcp = dc[:, None, None].expand(planar.shape)
+
+        if apply_pd_pdpc:
+            def pd_pdpc(p, tsec, lsec):
+                tt = sec(tsec, 1, w)[:, None, :]
+                ll = sec(lsec, 1, h)[:, :, None]
+                return p + ((pd_wl * (ll - p) + pd_wt * (tt - p) + 32) >> 6)
+            planar = pd_pdpc(planar, psec_t, psec_l)
+            dcp = pd_pdpc(dcp, SEC_TOP, SEC_LEFT)
+        ang[:, 0] = planar.clamp(0, max_pix)
+        ang[:, 1] = dcp.clamp(0, max_pix)
+        out[sl] = ang
+    return out
+
+
+def predict67(refs: torch.Tensor, tables: dict) -> torch.Tensor:
+    """K2: predict67_plain on the CPU, the CUDA kernel on the card."""
+    if refs.device.type == "cpu":
+        return predict67_plain(refs, tables)
+    keys = ("K", "W", "pdpc_wl", "pdpc_sidx", "hv_wl", "hv_sidx",
+            "needs_clip", "pdpc_on", "hv_on", "hv_topleft", "pd_wl", "pd_wt")
+    dev = kernels.check_cuda("predict67", refs, *(tables[k] for k in keys))
+    _check("predict67", refs, torch.int32, 2)
+    if refs.shape[1] != 4 * REF_LEN:
+        raise ValueError(f"predict67: refs must be [B, {4 * REF_LEN}]")
+    w, h = tables["w"], tables["h"]
+    B = refs.shape[0]
+    preds = torch.empty((B, NUM_MODES, h, w), dtype=torch.int32, device=dev)
+    kernels.launch("predict67", dev, refs.data_ptr(), B, w, h,
+                   (1 << tables["bitdepth"]) - 1,
+                   *(tables[k].data_ptr() for k in keys), preds.data_ptr())
+    return preds
+
+
+def _fwht(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Walsh-Hadamard transform (Sylvester order, x @ H with the matrix of
+    make_satd67_fn) along ``dim`` as butterflies of adds."""
+    x = x.movedim(dim, -1)
+    lead, n = x.shape[:-1], x.shape[-1]
+    half = 1
+    while half < n:
+        y = x.reshape(*lead, n // (2 * half), 2, half)
+        a, b = y[..., 0, :], y[..., 1, :]
+        x = torch.stack((a + b, a - b), dim=-2).reshape(*lead, n)
+        half *= 2
+    return x.movedim(-1, dim)
+
+
+def satd67_plain(preds: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """K3, plain version: (preds [B, M, h, w], src [B, h, w]) int32 ->
+    [B, M] int32 SATD, as make_satd67_fn computes it."""
+    B, M, h, w = preds.shape
+    n = 8 if (w >= 8 and h >= 8) else 4
+    add, shift = (2, 2) if n == 8 else (1, 1)
+    out = torch.empty((B, M), dtype=torch.int32, device=preds.device)
+    for sl in _chunks(B, M * h * w * 4):
+        d = src[sl][:, None] - preds[sl]
+        d = d.reshape(d.shape[0], M, h // n, n, w // n, n).transpose(3, 4)
+        t = _fwht(_fwht(d, -1), -2).abs()
+        s = t.sum(dim=(-2, -1), dtype=torch.int32)
+        dc = t[..., 0, 0]
+        s = (s - dc + (dc >> 2) + add) >> shift
+        out[sl] = s.sum(dim=(-2, -1), dtype=torch.int32)
+    return out
+
+
+def satd67(preds: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """K3: satd67_plain on the CPU, the CUDA kernel on the card."""
+    if preds.device.type == "cpu":
+        return satd67_plain(preds, src)
+    dev = kernels.check_cuda("satd67", preds, src)
+    _check("satd67", preds, torch.int32, 4)
+    _check("satd67", src, torch.int32, 3)
+    B, M, h, w = preds.shape
+    if M != NUM_MODES or tuple(src.shape) != (B, h, w) or w not in LOG2 \
+            or h not in LOG2:
+        raise ValueError("satd67: expects preds [B, 67, h, w], src [B, h, w]"
+                         " with w, h in 4..64, powers of two")
+    out = torch.empty((B, M), dtype=torch.int32, device=dev)
+    kernels.launch("satd67", dev, preds.data_ptr(), src.data_ptr(), B, w, h,
+                   out.data_ptr())
+    return out

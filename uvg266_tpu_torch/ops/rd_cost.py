@@ -1,0 +1,147 @@
+"""Batched rate-distortion block costing for the partition/mode search.
+
+Port of uvg266_tpu/ops/rd_cost.py. For a batch of blocks: pick the best
+intra mode by SATD + sqrt(lambda) * mode bits, then run the real forward
+path (DCT2 -> quant -> dequant -> IDCT2, exact integer arithmetic) on the
+winner and score rd = SSD + lambda * (bits_est + mode bits), with bits_est
+from the trained fast coefficient-cost model (fast_cost_tables).
+
+K4 ``rd_cost`` comes as a plain PyTorch version plus a wrapper that
+launches the hand-written CUDA kernel (csrc/rd_cost.cu) for tensors on the
+card. It takes the per-mode SATDs of K3 (ops.intra_batch.satd67) as an
+input; ``satd67`` followed by ``rd_cost`` is the reference's
+make_rd_cost_fn.
+
+Both versions compute in int32 where the reference does (x64 off: its
+int64 casts are int32), wrapping on overflow as it does. The bits estimate
+is taken as per-bucket counts times the weights, ((c0*w0 + c1*w1) + c2*w2)
++ c3*w3 in float32: an order-free form of the reference's float32 sum over
+the block, which adds the same terms one by one in XLA's order. rd agrees
+with the reference to within that sum's rounding ((n - 1) * 2^-24 of rd
+for n samples) and exactly between kernel and plain version.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .intra_batch import NUM_MODES
+from .quant import INV_QUANT_SCALES, QUANT_SCALES
+from .tr_matrices import DCT2, DCT8, DST7
+from .transforms import fwd_shifts, inv_shifts
+
+LOG2 = {4: 2, 8: 3, 16: 4, 32: 5, 64: 6}
+
+# MTS candidate transform pairs, indexed by tr_idx (cu.h:70-78):
+# 0=DCT2/DCT2, (1=skip), 2=DST7/DST7, 3=DCT8/DST7, 4=DST7/DCT8, 5=DCT8/DCT8
+MTS_PAIRS = {0: (DCT2, DCT2), 2: (DST7, DST7), 3: (DCT8, DST7),
+             4: (DST7, DCT8), 5: (DCT8, DCT8)}
+
+
+def quant_consts(w: int, h: int, bitdepth: int, qp: int,
+                 is_intra_slice: bool = True) -> dict:
+    """Scalar quantiser constants of make_rd_cost_fn (rd_cost.py:95-134)
+    for a w x h block at the scaled QP ``qp``."""
+    log2_w, log2_h = LOG2[w], LOG2[h]
+    needs_sqrt2 = int((log2_w + log2_h) % 2 == 1)
+    tshift = 15 - bitdepth - ((log2_w + log2_h) >> 1) - needs_sqrt2
+    tshift_d = 15 - bitdepth - ((log2_w + log2_h) >> 1)
+    q_bits = 14 + qp // 6 + tshift
+    add_base = 171 if is_intra_slice else 85
+    return {"q_bits": q_bits,
+            "scale": int(QUANT_SCALES[needs_sqrt2][qp % 6]),
+            "add": add_base << (q_bits - 9),
+            "iscale": int(INV_QUANT_SCALES[needs_sqrt2][qp % 6]) << (qp // 6),
+            "dq_shift": 20 - 14 - (tshift_d - needs_sqrt2)}
+
+
+def _wrap(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Two's-complement wrap of an int64 tensor to ``bits`` bits."""
+    half = 1 << (bits - 1)
+    return ((x + half) & ((1 << bits) - 1)) - half
+
+
+def _imatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int64 product a [..., m, k] @ b [..., k, n] as a broadcast
+    multiply and sum (no integer GEMM on the card)."""
+    return (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(dim=-2)
+
+
+# int64 elements of the largest intermediate per chunk of blocks
+_PLAIN_CHUNK = 1 << 24
+
+
+def rd_cost_plain(preds, src, satds, qp: int, lam: float, wts, mode_bits,
+                  tables: dict, bitdepth: int):
+    """K4, plain version. preds [B, 67, h, w], src [B, h, w], satds [B, 67]
+    int32; wts [4], mode_bits [67] float32; tables from
+    ops.tables.device_tables -> (best [B] int32, rd [B] float32,
+    satd_best [B] int32)."""
+    B, _M, h, w = preds.shape
+    c = quant_consts(w, h, bitdepth, qp)
+    s1, s2 = fwd_shifts(w, h, bitdepth)
+    si1, si2 = inv_shifts(bitdepth)
+    dev = preds.device
+    lam32 = torch.tensor(np.float32(lam), device=dev)
+    mode_cost = satds.to(torch.float32) + torch.sqrt(lam32) * mode_bits[None, :]
+    best = torch.argmin(mode_cost, dim=1)          # the first minimum
+    satd_best = satds.gather(1, best[:, None])[:, 0]
+    mw = tables["mat_w"].long()
+    mh = tables["mat_h"].long()
+    bits = torch.empty((B,), dtype=torch.float32, device=dev)
+    ssd = torch.empty((B,), dtype=torch.float32, device=dev)
+    step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
+    for b0 in range(0, B, step):
+        sl = slice(b0, min(b0 + step, B))
+        pred = preds[sl][torch.arange(sl.stop - sl.start, device=dev),
+                         best[sl]].long()
+        blk = src[sl].long()
+        t = _wrap((_imatmul(blk - pred, mw.T) + (1 << (s1 - 1))) >> s1, 16)
+        coef = _wrap((_imatmul(mh, t) + (1 << (s2 - 1))) >> s2, 16)
+        level = _wrap(coef.abs() * c["scale"] + c["add"], 32) >> c["q_bits"]
+        level = level.clamp(0, 32767)
+        bucket = level.clamp(max=3)
+        cnt = [(bucket == k).sum(dim=(-2, -1)).to(torch.float32)
+               for k in range(4)]
+        bits[sl] = ((cnt[0] * wts[0] + cnt[1] * wts[1]) + cnt[2] * wts[2]) \
+            + cnt[3] * wts[3]
+        dq = _wrap(coef.sign() * level * c["iscale"]
+                   + (1 << (c["dq_shift"] - 1)), 32) >> c["dq_shift"]
+        dq = dq.clamp(-32768, 32767)
+        u = ((_imatmul(mh.T, dq) + (1 << (si1 - 1))) >> si1).clamp(-32768,
+                                                                     32767)
+        r = ((_imatmul(u, mw) + (1 << (si2 - 1))) >> si2).clamp(-32768, 32767)
+        d = blk - (pred + r).clamp(0, (1 << bitdepth) - 1)
+        ssd[sl] = _wrap((d * d).sum(dim=(-2, -1)), 32).to(torch.float32)
+    rd = ssd + lam32 * (bits + mode_bits[best])
+    return best.to(torch.int32), rd, satd_best
+
+
+def rd_cost(preds, src, satds, qp: int, lam: float, wts, mode_bits,
+            tables: dict, bitdepth: int):
+    """K4: rd_cost_plain on the CPU, the CUDA kernel on the card."""
+    if preds.device.type == "cpu":
+        return rd_cost_plain(preds, src, satds, qp, lam, wts, mode_bits,
+                             tables, bitdepth)
+    dev = kernels.check_cuda("rd_cost", preds, src, satds, wts, mode_bits,
+                             tables["mat_w"], tables["mat_h"])
+    B, M, h, w = preds.shape
+    if (M != NUM_MODES or tuple(src.shape) != (B, h, w)
+            or tuple(satds.shape) != (B, M)
+            or any(t.dtype != torch.int32 for t in (preds, src, satds))
+            or wts.dtype != torch.float32 or mode_bits.dtype != torch.float32):
+        raise ValueError("rd_cost: expects int32 preds [B, 67, h, w], "
+                         "src [B, h, w], satds [B, 67] and float32 wts, "
+                         "mode_bits")
+    c = quant_consts(w, h, bitdepth, qp)
+    best = torch.empty((B,), dtype=torch.int32, device=dev)
+    rd = torch.empty((B,), dtype=torch.float32, device=dev)
+    satd_best = torch.empty((B,), dtype=torch.int32, device=dev)
+    kernels.launch("rd_cost", dev, preds.data_ptr(), src.data_ptr(),
+                   satds.data_ptr(), B, w, h, tables["mat_w"].data_ptr(),
+                   tables["mat_h"].data_ptr(), wts.data_ptr(),
+                   mode_bits.data_ptr(), bitdepth, c["q_bits"], c["scale"],
+                   c["add"], c["iscale"], c["dq_shift"], float(lam),
+                   best.data_ptr(), rd.data_ptr(), satd_best.data_ptr())
+    return best, rd, satd_best
