@@ -11,18 +11,36 @@ Phases, one line each (or a few), any failure exits non-zero:
      predict67, K3 satd67, K4 rd_cost), at the shapes of an 832x480 frame
      (the four classes 64x64 .. 8x8), held against its plain PyTorch
      version on the same card inputs (the frame, random and edge inputs at
-     8 and 10 bits): integer outputs equal, rd costs equal (both sides run
-     the same float32 operations in the same order: tolerance 0). Times
-     from CUDA events, launches per frame and the least time the card
-     could take (bytes over 3.35 TB/s or operations over 67 T/s);
-  4. the main path: Encoder(cfg, device="cuda").feed/flush of a 10-frame
-     832x480 all-intra QP22 clip (bench.py's configuration); every kernel
-     counter must equal 4 x frames; wall fps and device busy time;
-  5. the first frame encoded again on the CPU (plain versions): its access
-     unit must be byte-identical to the card's;
-  6. a 192x128 clip encoded on the card decodes through the port's oracle
-     decoder to the encoder's reconstruction;
-  7. a JSON line with each kernel's numbers, then the last line
+     8 and 10 bits, and K1 with a separate reference plane): integer
+     outputs equal, rd costs equal (both sides run the same float32
+     operations in the same order: tolerance 0). Times from CUDA events,
+     launches per frame and the least time the card could take (bytes over
+     3.35 TB/s or operations over 67 T/s);
+  4. the same for the inter kernels at 832x480: K5 pseudo_recon (frame,
+     random and edge planes, 8 and 10 bits, three QPs), K7 frame_inter (one
+     reference, every inter class of the dense search), K6 rd_cost_pred on
+     K7's predictions, K8 leaf_qpel (the frame's 16x16, 32x32 and 64x64
+     blocks as leaves of 4, 16 and 64 tiles, and the 64x64 leaves at the
+     largest 10-bit residual): all outputs equal, tolerance 0;
+  5. the all-intra path: Encoder(cfg, device="cuda").feed/flush of a
+     10-frame 832x480 all-intra QP22 clip (bench.py's configuration); K1-K4
+     must launch once per size class and frame, K5-K8 never; wall fps and
+     device busy time;
+  6. the low-delay path: bench.py's LD configuration (832x480 QP27, GOP 4
+     low-delay, rdoq off) over its 40-frame sequence: host ME, K5 and K1-K4
+     per P frame (the intra screen); the launch counts must match the size
+     classes and slice types; wall fps and device busy time;
+  7. the dense inter path: ime_algorithm=2, rdoq on, random-access GOP 8,
+     9 frames at 832x480: K1-K4 per frame, K7 per reference, K6 per
+     reference and inter class, K8 per frame with inter leaves; wall fps
+     and device busy time;
+  8. the card against the CPU (plain versions): all-intra frame 0, the
+     first three LD frames (I, P, P) and a three-frame clip of the dense
+     path (I, P, B) must give byte-identical access units and recon;
+  9. 192x128 clips encoded on the card (all-intra, LD, dense RA) decode
+     through the port's oracle decoder, with their references, to the
+     encoder's reconstruction;
+ 10. a JSON line with each kernel's numbers, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports nothing of JAX or the JAX package.
@@ -37,6 +55,9 @@ import time
 import numpy as np
 
 W, H, FRAMES, QP = 832, 480, 10, 22
+LD_FRAMES, LD_QP = 40, 27          # bench.py:63, :77
+RA_FRAMES = 9                      # IDR + one random-access GOP of 8
+R = 16                             # full-pel search range of the dense path
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 OPS_PER_S = 67e12             # H100 SXM float32 rate outside the tensor cores,
                               # the table's entry nearest to int32 ALU work
@@ -45,7 +66,16 @@ REPLACES = {
     "predict67": "uvg266_tpu/ops/intra_batch.py:420",
     "satd67": "uvg266_tpu/ops/intra_batch.py:521",
     "rd_cost": "uvg266_tpu/ops/rd_cost.py:78",
+    "pseudo_recon": "uvg266_tpu/ops/pseudo_recon.py:80",
+    "rd_cost_pred": "uvg266_tpu/ops/rd_cost.py:24",
+    "frame_inter": "uvg266_tpu/ops/me_frame.py:159",
+    "leaf_qpel": "uvg266_tpu/ops/me_frame.py:215",
 }
+INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
+# the path whose run gives each kernel's "launches" in the JSON line
+MAIN_PATH = {**dict.fromkeys(INTRA_KERNELS, "all-intra"),
+             "pseudo_recon": "low-delay", "rd_cost_pred": "dense RA",
+             "frame_inter": "dense RA", "leaf_qpel": "dense RA"}
 
 
 def fail(msg: str) -> None:
@@ -78,6 +108,21 @@ def bench_config(Config, w=W, h=H):
                   wpp=False)
 
 
+def ld_config(Config, w=W, h=H):
+    """bench.py:77-80, the low-delay benchmark (lp-g4d3t1 QP27)."""
+    return Config(width=w, height=h, qp=LD_QP, gop_len=4, gop_lowdelay=True,
+                  intra_period=64, sao_type=0, alf_type=0,
+                  deblock_enable=True, rdoq_enable=False,
+                  signhide_enable=False, dep_quant=False, wpp=False)
+
+
+def dense_config(Config, w=W, h=H):
+    """The all-device dense inter search (--me full), rdoq on (the Config
+    default: leaf refinement in K8), random-access GOP 8."""
+    return Config(width=w, height=h, qp=LD_QP, gop_len=8, gop_lowdelay=False,
+                  ime_algorithm=2, rdoq_enable=True)
+
+
 def time_ms(torch, fn, n: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -91,9 +136,25 @@ def time_ms(torch, fn, n: int) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def work(name, B, w, h, H_, W_):
-    """(bytes, operations) the function must move/do for one class:
-    each input read once, each output written once."""
+def dct_ops(n: int) -> int:
+    """Operations of one n-point integer DCT-II as a partial butterfly
+    (the form VVC's integer matrices allow): n adds/subtracts, the odd
+    half as an (n/2)x(n/2) multiply-add, the even half recursively."""
+    return 4 if n <= 2 else n + 2 * (n // 2) ** 2 + dct_ops(n // 2)
+
+
+def satd_ops(n: int) -> int:
+    """Operations per sample of an n x n Hadamard SATD: the difference,
+    log2(n) butterfly adds per pass and direction, abs and the sum."""
+    return 1 + 2 * (n.bit_length() - 1) + 2
+
+
+def work(name, B, w, h, H_, W_, **kw):
+    """(bytes, operations) the function must move/do for one call: each
+    input read once, each output written once; a multiply-add counts as two
+    operations. Operations are those the function needs, not those a
+    kernel's design does: transforms as partial butterflies, Hadamards as
+    butterflies, work shared between outputs counted once."""
     hw = w * h
     if name == "refs_blocks_grid":
         return (H_ * W_ + B * (780 + hw)) * 4, B * 2 * 195 * 4
@@ -102,12 +163,90 @@ def work(name, B, w, h, H_, W_):
         return B * 780 * 4 + tables + B * 67 * hw * 4, B * 67 * hw * 12
     if name == "satd67":
         n = 8 if (w >= 8 and h >= 8) else 4
-        per = 1 + 2 * (n.bit_length() - 1) + 2
-        return B * 67 * hw * 4 + B * hw * 4 + B * 67 * 4, B * 67 * hw * per
-    # rd_cost: satds, the winning prediction and the source in; 12 B out;
-    # four w*h*max(w,h) multiply-add passes
-    return (B * 67 * 4 + 2 * B * hw * 4 + w * w + h * h + 67 * 4 + 16
-            + B * 12, B * 2 * 2 * hw * (w + h))
+        return (B * 67 * hw * 4 + B * hw * 4 + B * 67 * 4,
+                B * 67 * hw * satd_ops(n))
+    # a forward and an inverse 2-D transform of a w x h block
+    tr_ops = 2 * (h * dct_ops(w) + w * dct_ops(h))
+    if name == "rd_cost":
+        # satds, the winning prediction and the source in; 12 B out
+        return (B * 67 * 4 + 2 * B * hw * 4 + w * w + h * h + 67 * 4 + 16
+                + B * 12, B * tr_ops)
+    if name == "rd_cost_pred":
+        # prediction, source, extra bits in; rd out; K4's transforms
+        return 2 * B * hw * 4 + B * 4 + w * w + h * h + 16 + B * 4, B * tr_ops
+    if name == "pseudo_recon":
+        # the plane in and out; per 16x16 tile a forward and an inverse
+        # 2-D DCT2
+        return (2 * H_ * W_ * 4 + 256,
+                (H_ // 16) * (W_ // 16) * 2 * 2 * 16 * dct_ops(16))
+    if name == "frame_inter":
+        # src, padded ref, pen and bits tables in; per class idx, extra,
+        # prediction and source blocks out. Tile SSD as b^2 - 2 corr + r^2:
+        # a multiply-add per sample and offset, three operations to combine
+        # per tile and offset, b^2 per tile, r^2 box sums over the padded
+        # reference (a square and two sliding add/subtract pairs per
+        # sample); per class: a float add per tile and offset after the
+        # first, the penalty add and a compare per offset
+        nn = (2 * R + 1) ** 2
+        tiles = (H_ // 8) * (W_ // 8)
+        cls = kw["classes"]
+        out = sum(g[4] * g[5] * (8 + 2 * cw * ch * 4) for (cw, ch, g) in cls)
+        ops = (tiles * nn * (64 * 2 + 3) + tiles * 64 * 2
+               + (H_ + 2 * R) * (W_ + 2 * R) * 5
+               + sum(g[4] * g[5] * nn * ((cw // 8) * (ch // 8) + 1)
+                     for (cw, ch, g) in cls))
+        return (H_ * W_ * 4 + (H_ + 2 * R) * (W_ + 2 * R) * 4 + 2 * nn * 4
+                + out, ops)
+    # leaf_qpel: windows, blocks, ids in; best, cost, seg out. Per tile:
+    # the horizontal 8-tap pass for each of the 3 fractional x phases over
+    # the 9 columns and 16 rows the 7 x offsets share; the vertical 8-tap
+    # pass for the 42 offsets with a fractional y; an 8x8 SATD and a
+    # segment add per offset (49). Per leaf: penalty add and compare.
+    nt, nl = kw["nt"], kw["nl"]
+    per_tile = (3 * 9 * 16 * 8 * 2 + 42 * 64 * 8 * 2
+                + 49 * 64 * satd_ops(8) + 49)
+    return (nt * (324 + 64 + 1) * 4 + 49 * 4 + nl * 51 * 4,
+            nt * per_tile + nl * 49 * 2)
+
+
+def inter_classes(slice_enc, entries):
+    """(w, h, grid) of the classes the dense search runs."""
+    return tuple((w, h, g)
+                 for (_k, w, h, _p, g) in slice_enc._inter_entries(entries))
+
+
+SLICE = {0: "B", 1: "P", 2: "I"}      # consts.SliceType
+
+
+def encode(enc, planes, clip):
+    out = []
+    for f in clip:
+        out.extend(enc.feed(planes(*f) if isinstance(f, tuple) else f))
+    out.extend(enc.flush())
+    return out
+
+
+def busy_share(torch, run):
+    """Device busy time by kernel over one run under torch.profiler."""
+    prof_act = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=prof_act) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    busy = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(busy.values())
+    if busy_ms <= 0:
+        return ("  device busy: not measured (the profiler saw no device "
+                "events)")
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    return (f"  device busy {busy_ms:.3f} ms of {pwall * 1e3:.3f} ms "
+            f"profiled wall ({busy_ms / (pwall * 1e3):.4f} busy share); "
+            + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top))
 
 
 def main() -> int:
@@ -117,13 +256,18 @@ def main() -> int:
     import uvg266_tpu_torch  # noqa: F401  (sets the TF32 policy)
     from uvg266_tpu_torch import kernels
     from uvg266_tpu_torch.cfg import Config
+    from uvg266_tpu_torch.consts import SliceType
     from uvg266_tpu_torch.control.encoder import (Encoder, FramePlanes,
-                                                  SliceEncoder)
+                                                  RefLists, SliceEncoder)
     from uvg266_tpu_torch.control.params import EncoderControl
     from uvg266_tpu_torch.control.partition import (PartitionSearch,
                                                     qp_to_lambda)
     from uvg266_tpu_torch.ops import intra_batch as ib
+    from uvg266_tpu_torch.ops import me_frame as mf
+    from uvg266_tpu_torch.ops import pseudo_recon as pr
     from uvg266_tpu_torch.ops import rd_cost as rc
+    from uvg266_tpu_torch.ops.inter import fetch_extended_block
+    from uvg266_tpu_torch.ops.me import make_mv_penalty
     from uvg266_tpu_torch.ops.tables import device_tables, frame_tables
     from uvg266_tpu_torch.oracle.decoder import decode_au
 
@@ -152,7 +296,7 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         print(f"  ptxas {name}: {' | '.join(usage)}", flush=True)
 
-    # --- 3. each kernel against its plain version ---------------------------
+    # --- 3. each all-intra kernel against its plain version -----------------
     cfg = bench_config(Config)
     ctrl = EncoderControl(cfg)
     frames = synth_clip()
@@ -179,7 +323,20 @@ def main() -> int:
         if d != 0.0:
             fail(f"{name} {what}: kernel and plain version differ by {d}")
 
+    def timed(name, kern, plain, label, n_kern=20, n_plain=3, **kw):
+        k_ms = time_ms(torch, kern, n_kern)
+        p_ms = time_ms(torch, plain, n_plain)
+        b, o = work(name, **kw)
+        ms[name] += k_ms
+        plain_ms[name] += p_ms
+        bytes_[name] += b
+        ops[name] += o
+        bound = max(b / HBM_BYTES_PER_S, o / OPS_PER_S) * 1e3
+        print(f"  {name} {label}: {k_ms:.4f} ms kernel, {p_ms:.4f} ms "
+              f"plain, bound {bound:.4f} ms ({b} B, {o} ops)", flush=True)
+
     frame_src = torch.from_numpy(frames[0][0]).to(dev)
+    pseudo0 = pr.pseudo_recon(frame_src, LD_QP, 8)
     for (w, h, g) in classes:
         B = g[4] * g[5]
         for bd in (8, 10):
@@ -195,9 +352,14 @@ def main() -> int:
             for tag, src in planes.items():
                 what = f"{w}x{h} {bd}-bit {tag}"
                 refs, blocks = ib.refs_blocks_grid(src, w, h, g)
-                pr, pb = ib.refs_blocks_grid_plain(src, w, h, g)
-                same("refs_blocks_grid", what + " refs", refs, pr)
+                pr_, pb = ib.refs_blocks_grid_plain(src, w, h, g)
+                same("refs_blocks_grid", what + " refs", refs, pr_)
                 same("refs_blocks_grid", what + " blocks", blocks, pb)
+                if tag == "frame":                 # the inter-slice screen
+                    rr, rb = ib.refs_blocks_grid(src, w, h, g, pseudo0)
+                    qr, qb = ib.refs_blocks_grid_plain(src, w, h, g, pseudo0)
+                    same("refs_blocks_grid", what + " refsrc refs", rr, qr)
+                    same("refs_blocks_grid", what + " refsrc blocks", rb, qb)
                 ref_sets = {tag: refs}
                 if tag == "rand":
                     ref_sets["rand refs"] = torch.randint(
@@ -236,112 +398,312 @@ def main() -> int:
         satds = ib.satd67(preds, blocks)
         rd_args = (preds, blocks, satds, QP, lam, ft["wts"], ft["mode_bits"],
                    tabs, 8)
-        runs = {
-            "refs_blocks_grid": (lambda: ib.refs_blocks_grid(frame_src, w, h, g),
-                                 lambda: ib.refs_blocks_grid_plain(frame_src, w, h, g)),
-            "predict67": (lambda: ib.predict67(refs, tabs),
-                          lambda: ib.predict67_plain(refs, tabs)),
-            "satd67": (lambda: ib.satd67(preds, blocks),
-                       lambda: ib.satd67_plain(preds, blocks)),
-            "rd_cost": (lambda: rc.rd_cost(*rd_args),
-                        lambda: rc.rd_cost_plain(*rd_args)),
-        }
-        for name, (kern, plain) in runs.items():
-            k_ms = time_ms(torch, kern, 20)
-            p_ms = time_ms(torch, plain, 3)
-            b, o = work(name, B, w, h, H, W)
-            ms[name] += k_ms
-            plain_ms[name] += p_ms
-            bytes_[name] += b
-            ops[name] += o
-            bound = max(b / HBM_BYTES_PER_S, o / OPS_PER_S) * 1e3
-            print(f"  {name} {w}x{h}: {k_ms:.4f} ms kernel, {p_ms:.4f} ms "
-                  f"plain, bound {bound:.4f} ms ({b} B, {o} ops)", flush=True)
-        del refs, blocks, preds, satds, rd_args, runs
-    print(f"phase 3 kernels: {checks} comparisons, all equal", flush=True)
+        shape = dict(B=B, w=w, h=h, H_=H, W_=W)
+        timed("refs_blocks_grid",
+              lambda: ib.refs_blocks_grid(frame_src, w, h, g),
+              lambda: ib.refs_blocks_grid_plain(frame_src, w, h, g),
+              f"{w}x{h}", **shape)
+        timed("predict67", lambda: ib.predict67(refs, tabs),
+              lambda: ib.predict67_plain(refs, tabs), f"{w}x{h}", **shape)
+        timed("satd67", lambda: ib.satd67(preds, blocks),
+              lambda: ib.satd67_plain(preds, blocks), f"{w}x{h}", **shape)
+        timed("rd_cost", lambda: rc.rd_cost(*rd_args),
+              lambda: rc.rd_cost_plain(*rd_args), f"{w}x{h}", **shape)
+        del refs, blocks, preds, satds, rd_args
+    print(f"phase 3 intra kernels: {checks} comparisons, all equal",
+          flush=True)
 
-    # --- 4. the main path ---------------------------------------------------
+    # --- 4. each inter kernel against its plain version ---------------------
+    n0 = checks
+    # K5: the plane the P/B intra screen reads its references from
+    for bd in (8, 10):
+        mx = (1 << bd) - 1
+        planes = {"rand": torch.randint(0, mx + 1, (H, W), generator=gen,
+                                        device=dev, dtype=torch.int32),
+                  "edge": (((torch.arange(H, device=dev)[:, None]
+                             + torch.arange(W, device=dev)[None]) % 2)
+                           * mx).to(torch.int32)}
+        if bd == 8:
+            planes["frame"] = frame_src
+        for tag, src in planes.items():
+            for qp in (22, 27, 37):
+                qps = qp + 6 * (bd - 8)
+                same("pseudo_recon", f"{bd}-bit {tag} qp{qp}",
+                     pr.pseudo_recon(src, qps, bd),
+                     pr.pseudo_recon_plain(src, qps, bd))
+    timed("pseudo_recon", lambda: pr.pseudo_recon(frame_src, LD_QP, 8),
+          lambda: pr.pseudo_recon_plain(frame_src, LD_QP, 8), f"{W}x{H}",
+          B=0, w=16, h=16, H_=H, W_=W)
+    # K7 + K6: frame 1 against frame 0, the dense path's inter classes
+    dcfg = dense_config(Config)
+    dctrl = EncoderControl(dcfg)
+    dprobe = SliceEncoder(dcfg, dctrl, device=dev)
+    # the size classes are fixed by the encoder's first (intra) frame and
+    # kept for its inter frames
+    dentries = dprobe._fused_entries(PartitionSearch(dctrl, dcfg, qp=LD_QP))
+    iclasses = inter_classes(dprobe, dentries)
+    print("phase 4 inter classes: " + ", ".join(
+        f"{w}x{h} B={g[4] * g[5]}" for (w, h, g) in iclasses), flush=True)
+    cur = torch.from_numpy(frames[1][0]).to(dev)
+    ref_np = np.pad(frames[0][0], R, mode="edge").astype(np.int32)
+    ref_pad = torch.from_numpy(ref_np).to(dev)
+    lam_i = float(np.float32(qp_to_lambda(LD_QP, False)))
+    pen = torch.from_numpy(make_mv_penalty(R, np.sqrt(lam_i)).reshape(-1)) \
+        .to(dev)
+    bits_tab = torch.from_numpy(mf.mv_bits_table(R)).to(dev)
+    found = mf.frame_inter(cur, ref_pad, pen, bits_tab, iclasses, R)
+    want = mf.frame_inter_plain(cur, ref_pad, pen, bits_tab, iclasses, R)
+    for (w, h, _g), got_c, want_c in zip(iclasses, found, want):
+        for o, a, b in zip(("idx", "pred", "blk", "extra"), got_c, want_c):
+            same("frame_inter", f"{w}x{h} {o}", a, b)
+    timed("frame_inter",
+          lambda: mf.frame_inter(cur, ref_pad, pen, bits_tab, iclasses, R),
+          lambda: mf.frame_inter_plain(cur, ref_pad, pen, bits_tab, iclasses,
+                                       R), f"{W}x{H} 1 ref",
+          B=0, w=8, h=8, H_=H, W_=W, classes=iclasses)
+    ft = frame_tables(LD_QP, "cuda")
+    for (w, h, g), (_idx, pred, blk, extra) in zip(iclasses, found):
+        tabs = device_tables(w, h, 8, "cuda")
+        for qp in (22, 27, 37):
+            a = (pred, blk, qp, float(np.float32(qp_to_lambda(qp, False))),
+                 frame_tables(qp, "cuda")["wts"], extra, tabs, 8)
+            same("rd_cost_pred", f"{w}x{h} qp{qp}", rc.rd_cost_pred(*a),
+                 rc.rd_cost_pred_plain(*a))
+        a = (pred, blk, LD_QP, lam_i, ft["wts"], extra, tabs, 8)
+        timed("rd_cost_pred", lambda: rc.rd_cost_pred(*a),
+              lambda: rc.rd_cost_pred_plain(*a), f"{w}x{h}",
+              B=g[4] * g[5], w=w, h=h, H_=H, W_=W)
+    # K8: leaves of frame 1 against frame 0 in three sets, 16x16, 32x32
+    # and 64x64 (4, 16 and 64 tiles a leaf, segment sums in tile order):
+    # the 32x32 leaves at K7's 32x32 MVs, the others at seeded random
+    # full-pel MVs; then the 64x64 set at the largest residual at 10 bits
+    # (block = 1023 - window)
+    rng = np.random.default_rng(3)
+    ref0 = frames[0][0]
+    src1 = frames[1][0]
+
+    def leaf_set(leaves):
+        tiles, tblocks, ids = [], [], []
+        for li, (x, y, s, mvx, mvy) in enumerate(leaves):
+            win = fetch_extended_block(ref0, x + mvx, y + mvy, s, s,
+                                       5, 5, 5, 5)
+            for i in range(s // 8):
+                for j in range(s // 8):
+                    tiles.append(win[8 * i:8 * i + 18, 8 * j:8 * j + 18])
+                    tblocks.append(src1[y + 8 * i:y + 8 * i + 8,
+                                        x + 8 * j:x + 8 * j + 8])
+                    ids.append(li)
+        return [torch.from_numpy(np.stack(a).astype(np.int32)).to(dev)
+                for a in (tiles, tblocks, ids)] + [len(leaves)]
+
+    def random_mv():
+        return tuple(int(v) for v in rng.integers(-8, 9, 2))
+
+    leaves16 = [(x, y, 16, *random_mv()) for y in range(0, H, 16)
+                for x in range(0, W, 16)]
+    nn = 2 * R + 1
+    k7 = {(w, h): (g, idx) for (w, h, g), (idx, *_r) in zip(iclasses, found)}
+    if (32, 32) in k7:
+        g, idx = k7[(32, 32)]
+        xs, ys = ib._grid_xy(g, "cpu")
+        leaves32 = [(int(x), int(y), 32, int(k) % nn - R, int(k) // nn - R)
+                    for x, y, k in zip(xs, ys, idx.cpu())]
+    else:
+        leaves32 = [(x, y, 32, *random_mv()) for y in range(0, H - 31, 32)
+                    for x in range(0, W - 31, 32)]
+    leaves64 = [(x, y, 64, *random_mv()) for y in range(0, H - 63, 64)
+                for x in range(0, W - 63, 64)]
+    pen49 = torch.from_numpy(np.array(
+        [np.sqrt(lam_i) * ((0.0 if k % 7 == 3 else 2.0)
+                           + (0.0 if k // 7 == 3 else 2.0))
+         for k in range(49)], dtype=np.float32)).to(dev)
+    sets = {f"{s}x{s}": leaf_set(lv) for s, lv in
+            ((16, leaves16), (32, leaves32), (64, leaves64))}
+    cases = [(f"{tag} {bd}-bit", (wn * sc, bk * sc, ids, nl, pen49, bd))
+             for tag, (wn, bk, ids, nl) in sets.items()
+             for bd, sc in ((8, 1), (10, 4))]
+    wins64, _b, ids64, nl64 = sets["64x64"]
+    wmax = (wins64 % 2) * 1023
+    cases.append(("64x64 10-bit max residual",
+                  (wmax, 1023 - wmax[:, 5:13, 5:13].contiguous(), ids64, nl64,
+                   pen49, 10)))
+    for what, a in cases:
+        for o, x_, y_ in zip(("best", "cost", "seg"), mf.leaf_qpel(*a),
+                             mf.leaf_qpel_plain(*a)):
+            same("leaf_qpel", f"{what} {o}", x_, y_)
+    wins, blks, lids, li = sets["16x16"]
+    nt = wins.shape[0]
+    timed("leaf_qpel", lambda: mf.leaf_qpel(wins, blks, lids, li, pen49, 8),
+          lambda: mf.leaf_qpel_plain(wins, blks, lids, li, pen49, 8),
+          f"{nt} tiles, {li} leaves", B=0, w=8, h=8, H_=H, W_=W, nt=nt, nl=li)
+    del found, want, sets, cases, wins, blks, lids, wins64, ids64, wmax
+    print(f"phase 4 inter kernels: {checks - n0} comparisons, all equal",
+          flush=True)
+
+    counts = {}
+
+    def expect(path, launches, want_counts):
+        for name in REPLACES:
+            if launches.get(name, 0) != want_counts.get(name, 0):
+                fail(f"{path} path launched {name} {launches.get(name, 0)} "
+                     f"times, expected {want_counts.get(name, 0)}")
+        counts[path] = launches
+
+    def n_classes(enc):
+        return len(enc.slice_enc._fused_entries_c)
+
+    # --- 5. the all-intra path ----------------------------------------------
     clip = [FramePlanes(*f) for f in frames]
-    warm = Encoder(cfg, device=dev)          # native build, tables, buffers
-    for f in clip[:2]:
-        warm.feed(f)
-    warm.flush()
+    encode(Encoder(cfg, device=dev), FramePlanes, clip[:2])    # warm-up
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
     enc = Encoder(cfg, device=dev)
-    outs = []
-    for f in clip:
-        outs.extend(enc.feed(f))
-    outs.extend(enc.flush())
+    outs = encode(enc, FramePlanes, clip)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     if len(outs) != FRAMES:
-        fail(f"main path returned {len(outs)} of {FRAMES} frames")
-    for name, n in launches.items():
-        if n != 4 * FRAMES:
-            fail(f"main path launched {name} {n} times, expected {4 * FRAMES}")
+        fail(f"all-intra path returned {len(outs)} of {FRAMES} frames")
+    expect("all-intra", launches,
+           dict.fromkeys(INTRA_KERNELS, n_classes(enc) * FRAMES))
     for au, rec, _fs, _refs, _src in outs:
         if not au or rec.y.shape != (H, W) or not np.isfinite(rec.y).all():
-            fail("main path produced an empty AU or a malformed recon")
-    total_bytes = sum(len(o[0]) for o in outs)
-    print(f"phase 4 main path: {FRAMES} frames {W}x{H} QP{QP} in {wall:.3f} s "
-          f"= {FRAMES / wall:.3f} fps wall, {total_bytes} bytes, launches "
+            fail("all-intra path produced an empty AU or a malformed recon")
+    print(f"phase 5 all-intra path: {FRAMES} frames {W}x{H} QP{QP} in "
+          f"{wall:.3f} s = {FRAMES / wall:.3f} fps wall, "
+          f"{sum(len(o[0]) for o in outs)} bytes, launches "
           + json.dumps(launches), flush=True)
-    prof_act = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=prof_act) as prof:
+    print(busy_share(torch, lambda: encode(Encoder(cfg, device=dev),
+                                           FramePlanes, clip)), flush=True)
+
+    # --- 6. the low-delay path ----------------------------------------------
+    lcfg = ld_config(Config)
+    seq = [clip[i % FRAMES] for i in range(LD_FRAMES)]
+    encode(Encoder(lcfg, device=dev), FramePlanes, seq[:3])     # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    lenc = Encoder(lcfg, device=dev)
+    louts = encode(lenc, FramePlanes, seq)
+    torch.cuda.synchronize()
+    lwall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if len(louts) != LD_FRAMES:
+        fail(f"low-delay path returned {len(louts)} of {LD_FRAMES} frames")
+    n_p = sum(1 for o in louts if o[2].slicetype != SliceType.I)
+    if n_p != LD_FRAMES - 1:
+        fail(f"low-delay path coded {n_p} P/B frames, expected "
+             f"{LD_FRAMES - 1}")
+    expect("low-delay", launches,
+           {**dict.fromkeys(INTRA_KERNELS, n_classes(lenc) * LD_FRAMES),
+            "pseudo_recon": n_p})
+    print(f"phase 6 low-delay path: {LD_FRAMES} frames {W}x{H} QP{LD_QP} "
+          f"({n_p} P/B) in {lwall:.3f} s = {LD_FRAMES / lwall:.3f} fps wall, "
+          f"{sum(len(o[0]) for o in louts)} bytes, launches "
+          + json.dumps(launches), flush=True)
+    print(busy_share(torch, lambda: encode(Encoder(lcfg, device=dev),
+                                           FramePlanes, seq)), flush=True)
+
+    # --- 7. the dense inter path --------------------------------------------
+    rclip = clip[:RA_FRAMES]
+    k8_frames = [0]
+    refine = SliceEncoder._refine_inter_leaves
+
+    def counted_refine(self, ctus, *a, **k):
+        # K8 launches once for a frame that has inter leaves to refine
+        if any(leaf.cu_desc.get("type") == "inter"
+               for node in ctus for leaf in node.leaves()):
+            k8_frames[0] += 1
+        return refine(self, ctus, *a, **k)
+
+    SliceEncoder._refine_inter_leaves = counted_refine
+    try:
+        kernels.reset_launches()
         t0 = time.perf_counter()
-        enc2 = Encoder(cfg, device=dev)
-        for f in clip:
-            enc2.feed(f)
-        enc2.flush()
+        denc = Encoder(dcfg, device=dev)
+        douts = encode(denc, FramePlanes, rclip)
         torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    busy = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy_ms = sum(busy.values())
-    if busy_ms > 0:
-        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-        print(f"  device busy {busy_ms:.3f} ms of {pwall * 1e3:.3f} ms "
-              f"profiled wall ({busy_ms / (pwall * 1e3):.4f} busy share); "
-              + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top), flush=True)
-    else:
-        print("  device busy: not measured (the profiler saw no device "
-              "events)", flush=True)
+        dwall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        SliceEncoder._refine_inter_leaves = refine
+    if len(douts) != RA_FRAMES:
+        fail(f"dense path returned {len(douts)} of {RA_FRAMES} frames")
+    n_uniq = 0
+    for (_au, _rec, fs, rl, _src) in douts:
+        if fs.slicetype != SliceType.I:
+            rl = rl if isinstance(rl, RefLists) else RefLists.from_single(
+                rl, fs)
+            n_uniq += len(denc.slice_enc._uniq_refs(
+                rl, fs.slicetype == SliceType.B)[0])
+    if n_uniq == 0 or k8_frames[0] == 0:
+        fail("dense path: no inter frame searched or refined")
+    expect("dense RA", launches,
+           {**dict.fromkeys(INTRA_KERNELS, n_classes(denc) * RA_FRAMES),
+            "frame_inter": n_uniq,
+            "rd_cost_pred": n_uniq * len(inter_classes(
+                denc.slice_enc, denc.slice_enc._fused_entries_c)),
+            "leaf_qpel": k8_frames[0]})
+    print(f"phase 7 dense path: {RA_FRAMES} frames {W}x{H} QP{LD_QP} RA GOP8 "
+          f"ime_algorithm=2 rdoq in {dwall:.3f} s = {RA_FRAMES / dwall:.3f} "
+          f"fps wall, {sum(len(o[0]) for o in douts)} bytes, launches "
+          + json.dumps(launches), flush=True)
+    print(busy_share(torch, lambda: encode(Encoder(dcfg, device=dev),
+                                           FramePlanes, rclip)), flush=True)
 
-    # --- 5. the card against the CPU ----------------------------------------
-    cpu = Encoder(cfg, device="cpu")
-    cpu_out = cpu.feed(clip[0]) + cpu.flush()
-    if cpu_out[0][0] != outs[0][0]:
-        fail("frame 0: the card's access unit differs from the CPU's")
-    if not np.array_equal(cpu_out[0][1].y, outs[0][1].y):
-        fail("frame 0: the card's recon differs from the CPU's")
-    print(f"phase 5 card vs CPU: frame 0 access unit byte-identical "
-          f"({len(outs[0][0])} bytes)", flush=True)
+    # --- 8. the card against the CPU ----------------------------------------
+    def card_vs_cpu(path, config, got, n, enc_clip):
+        ref = encode(Encoder(config, device="cpu"), FramePlanes, enc_clip)
+        for i in range(n):
+            if got[i][0] != ref[i][0] or not all(
+                    np.array_equal(getattr(got[i][1], p), getattr(ref[i][1], p))
+                    for p in ("y", "u", "v")):
+                fail(f"{path}: coded frame {i} (poc {got[i][2].poc}) differs "
+                     "between the card and the CPU")
+        return ", ".join(f"{SLICE[got[i][2].slicetype]} poc {got[i][2].poc} "
+                         f"{len(got[i][0])} B" for i in range(n))
 
-    # --- 6. a small clip through the oracle decoder -------------------------
-    scfg = bench_config(Config, 192, 128)
-    senc = Encoder(scfg, device=dev)
-    sout = []
-    for f in synth_clip(192, 128, 2):
-        sout.extend(senc.feed(FramePlanes(*f)))
-    sout.extend(senc.flush())
-    for au, rec, fs, _refs, _src in sout:
-        dec, info = decode_au(au, scfg, senc.ctrl, fs)
-        if not info["headers_ok"] or info["checksum_ok"] is not True:
-            fail(f"oracle: headers_ok {info['headers_ok']}, checksum_ok "
-                 f"{info['checksum_ok']}")
-        for p in ("y", "u", "v"):
-            if not np.array_equal(getattr(dec, p), getattr(rec, p)):
-                fail(f"oracle: decoded {p} differs from the encoder's recon")
-    print(f"phase 6 oracle: {len(sout)} frames 192x128 decode to the "
-          "encoder's recon", flush=True)
+    msg = [card_vs_cpu("all-intra", cfg, outs, 1, clip[:1])]
+    msg.append(card_vs_cpu("low-delay", lcfg, louts, 3, seq[:3]))
+    # three frames of the dense path: the IDR, then the truncated GOP's
+    # POC 2 (P) and POC 1 (B)
+    dshort = encode(Encoder(dcfg, device=dev), FramePlanes, rclip[:3])
+    msg.append(card_vs_cpu("dense RA", dcfg, dshort, 3, rclip[:3]))
+    if {o[2].slicetype for o in dshort} != {SliceType.I, SliceType.P,
+                                             SliceType.B}:
+        fail("dense RA card-vs-CPU clip lacks an I, P or B slice")
+    print("phase 8 card vs CPU byte-identical: " + "; ".join(msg), flush=True)
 
-    # --- 7. results ---------------------------------------------------------
+    # --- 9. small clips through the oracle decoder --------------------------
+    for label, mk in (("all-intra", bench_config), ("low-delay", ld_config),
+                      ("dense RA", dense_config)):
+        scfg = mk(Config, 192, 128)
+        senc = Encoder(scfg, device=dev)
+        sout = encode(senc, FramePlanes, synth_clip(192, 128, 5))
+        dpb = {}
+        for au, rec, fs, _rl, _src in sout:
+            pocs0 = [fs.poc - d for d in fs.ref_pocs_neg]
+            pocs1 = [fs.poc + d for d in fs.ref_pocs_pos] or list(pocs0)
+            if fs.slicetype == SliceType.I:
+                dpb.clear()
+            orl = RefLists(l0=[dpb[q] for q in pocs0],
+                           l1=[dpb[q] for q in pocs1], pocs0=pocs0,
+                           pocs1=pocs1)
+            dec, info = decode_au(au, scfg, senc.ctrl, fs, refs=orl)
+            if not info["headers_ok"] or info["checksum_ok"] is not True:
+                fail(f"oracle {label} poc {fs.poc}: headers_ok "
+                     f"{info['headers_ok']}, checksum_ok {info['checksum_ok']}")
+            for p in ("y", "u", "v"):
+                if not np.array_equal(getattr(dec, p), getattr(rec, p)):
+                    fail(f"oracle {label} poc {fs.poc}: decoded {p} differs "
+                         "from the encoder's recon")
+            dpb[fs.poc] = dec
+        print(f"phase 9 oracle {label}: {len(sout)} frames 192x128 ("
+              + "".join(SLICE[o[2].slicetype] for o in sout)
+              + ") decode to the encoder's recon", flush=True)
+
+    # --- 10. results --------------------------------------------------------
     rows = []
     for name in REPLACES:
         t_bytes = bytes_[name] / HBM_BYTES_PER_S
@@ -350,7 +712,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"uvg266_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": launches[name],
+            "launches": counts[MAIN_PATH[name]][name],
             "max_abs_err": err[name],
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": max(t_bytes, t_ops) * 1e3,

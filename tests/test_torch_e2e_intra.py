@@ -63,7 +63,28 @@ def test_e2e_byte_identical_to_reference(w, h, seed):
             np.testing.assert_array_equal(getattr(dec, p), getattr(rec, p))
 
 
-@pytest.mark.parametrize("kw", [dict(gop_len=4), dict(intra_period=64),
+def test_rdoq_default_byte_identical_to_reference():
+    """The Config default (rdoq on) takes the sequential Python finalize,
+    which needs ops.me (mv_bits_est)."""
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 256, (64, 64)).astype(np.int32)
+    u = rng.integers(0, 256, (32, 32)).astype(np.int32)
+    kw = dict(width=64, height=64, qp=27, gop_len=0, intra_period=1)
+    assert Config(**kw).rdoq_enable
+    ref = _encode(RefEncoder(RefConfig(**kw)), RefPlanes, [(y, u, u.copy())])
+    enc = Encoder(Config(**kw), device="cpu")
+    got = _encode(enc, FramePlanes, [(y, u, u.copy())])
+    assert got[0][0] == ref[0][0]
+    np.testing.assert_array_equal(got[0][1].y, ref[0][1].y)
+    dec, info = decode_au(got[0][0], enc.cfg, enc.ctrl, got[0][2])
+    assert info["checksum_ok"] is True
+    np.testing.assert_array_equal(dec.y, got[0][1].y)
+
+
+# inter slices are ported at 8 bits only: at 10 bits both device inter
+# paths decline and the reference runs the per-class search (item 7)
+@pytest.mark.parametrize("kw", [dict(gop_len=4, input_bitdepth=10),
+                                dict(intra_period=64, input_bitdepth=10),
                                 dict(mts=1), dict(mip=True),
                                 dict(intra_rough=True)])
 def test_unported_configs_raise(kw):

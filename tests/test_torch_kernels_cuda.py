@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions on the card.
+"""The CUDA kernels K1-K8 against their plain PyTorch versions on the card.
 
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA card: they
 carry the ``cuda`` marker and skip elsewhere. On the card:
@@ -55,5 +55,77 @@ def test_kernels_equal_plain(card, w, h, bd):
         for a, b in zip(rd.rd_cost(*args), rd.rd_cost_plain(*args)):
             assert torch.equal(a, b)
     torch.cuda.synchronize()
-    assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {
         "refs_blocks_grid": 1, "predict67": 1, "satd67": 1, "rd_cost": 2}
+
+
+def _t(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_inter_kernels_equal_plain(card, bd):
+    """K1 with a separate reference plane, K5 pseudo_recon, K6
+    rd_cost_pred, K7 frame_inter and K8 leaf_qpel (K6 and K7 at 8 bits,
+    the only depth their path runs) against their plain versions."""
+    from uvg266_tpu_torch.ops import me_frame as mf
+    from uvg266_tpu_torch.ops import pseudo_recon as pr
+    rng = np.random.default_rng(bd)
+    mx = (1 << bd) - 1
+    H, W, r = 96, 128, 16
+    src = rng.integers(0, mx + 1, (H, W)).astype(np.int32)
+    src[:16, :16] = mx * (np.arange(16)[None, :] % 2)
+    before = dict(kernels.LAUNCHES)
+    s = _t(src, card)
+    for qps in (22, 37, 51 + 6 * (bd - 8)):
+        assert torch.equal(pr.pseudo_recon(s, qps, bd),
+                           pr.pseudo_recon_plain(s, qps, bd))
+    pseudo = pr.pseudo_recon(s, 27, bd)
+    grid = (8, 0, 32, 32, 3, 3)
+    got = ib.refs_blocks_grid(s, 16, 32, grid, pseudo)
+    want = ib.refs_blocks_grid_plain(s, 16, 32, grid, pseudo)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    pen49 = _t(rng.uniform(0, 40, 49).astype(np.float32), card)
+    nt, nl = 40, 12
+    ids = np.sort(rng.integers(0, nl + 1, nt)).astype(np.int32)   # + padding
+    args = (_t(rng.integers(0, mx + 1, (nt, 18, 18)).astype(np.int32), card),
+            _t(rng.integers(0, mx + 1, (nt, 8, 8)).astype(np.int32), card),
+            _t(ids, card), nl, pen49, bd)
+    assert all(torch.equal(a, b) for a, b in zip(mf.leaf_qpel(*args),
+                                                  mf.leaf_qpel_plain(*args)))
+    # leaves of 1, 4, 16 and 64 tiles (8x8 .. 64x64) plus padding tiles;
+    # the 64-tile leaf at the largest residual (block = max - window)
+    sizes = (1, 4, 16, 64, 2)
+    ids = np.repeat(np.arange(len(sizes) + 1), sizes + (3,)).astype(np.int32)
+    wins = rng.integers(0, mx + 1, (ids.size, 18, 18)).astype(np.int32)
+    blks = rng.integers(0, mx + 1, (ids.size, 8, 8)).astype(np.int32)
+    big = ids == 3
+    blks[big] = mx - wins[big, 5:13, 5:13]
+    args = (_t(wins, card), _t(blks, card), _t(ids, card), len(sizes), pen49,
+            bd)
+    assert all(torch.equal(a, b) for a, b in zip(mf.leaf_qpel(*args),
+                                                  mf.leaf_qpel_plain(*args)))
+    n_expect = {"pseudo_recon": 4, "refs_blocks_grid": 1, "leaf_qpel": 2}
+    if bd == 8:
+        ref = np.clip(np.roll(src, (3, -5), axis=(0, 1))
+                      + rng.integers(-3, 4, (H, W)), 0, mx).astype(np.int32)
+        ref_pad = _t(np.pad(ref, r, mode="edge"), card)
+        n = 2 * r + 1
+        pen = _t(np.linspace(0, 60, n * n).astype(np.float32), card)
+        bits = _t(rng.uniform(4, 30, n * n).astype(np.float32), card)
+        classes = ((8, 8, (0, 0, 8, 8, 16, 12)), (32, 32, (0, 0, 32, 32, 4, 3)),
+                   (64, 64, (0, 0, 64, 64, 2, 1)), (16, 32, (8, 0, 32, 32, 3, 3)))
+        got = mf.frame_inter(s, ref_pad, pen, bits, classes, r)
+        want = mf.frame_inter_plain(s, ref_pad, pen, bits, classes, r)
+        for g, w_ in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(g, w_))
+        ft = tb.frame_tables(27, "cuda")
+        for (w, h, _g), (_idx, pred, blk, extra) in zip(classes, got):
+            tabs = tb.device_tables(w, h, 8, "cuda")
+            a = (pred, blk, 27, 68.5, ft["wts"], extra, tabs, 8)
+            assert torch.equal(rd.rd_cost_pred(*a), rd.rd_cost_pred_plain(*a))
+        n_expect.update(frame_inter=1, rd_cost_pred=len(classes))
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == n_expect

@@ -7,11 +7,13 @@ phase 2 CABAC-encodes the decided syntax. The batched search kernels
 slot into phase 1; this module stays as the golden model.
 
 Port of uvg266_tpu/control/encoder.py: the host code is the reference's;
-the all-intra frame search runs the CUDA kernels K1-K4 (ops.intra_batch,
-ops.rd_cost) on ``device``, the card unless the caller passes
-device="cpu" (then their plain PyTorch versions). Configurations and
-paths not ported yet raise NotImplementedError naming their ROADMAP.md
-item.
+the device search runs hand-written CUDA kernels on ``device``, the card
+unless the caller passes device="cpu" (then their plain PyTorch versions):
+K1-K4 (ops.intra_batch, ops.rd_cost) for the intra candidates of every
+frame, K5 (ops.pseudo_recon) for the P/B intra screen of the host-ME path,
+K6-K8 (ops.rd_cost, ops.me_frame) for the dense inter search and the
+leaf-level quarter-pel refinement. Configurations and paths not ported yet
+raise NotImplementedError naming their ROADMAP.md item.
 
 Control flow parity with the reference frame pipeline:
 - uvg_encode_one_frame / encoder_state_encode_leaf
@@ -1312,11 +1314,14 @@ def _not_ported(what: str, item: str):
 
 
 def check_slice_config(cfg) -> None:
-    """Raise for a configuration outside the ported all-intra slice."""
-    if cfg.gop_len > 0 or cfg.intra_period != 1:
-        _not_ported("inter slices (gop_len > 0 or intra_period != 1)",
-                    "items 5-6 (low-delay P/B intra screen, dense inter "
-                    "search)")
+    """Raise for a configuration outside the ported slices: all-intra, and
+    low-delay / random-access P and B slices at 8 bits."""
+    inter = not (cfg.gop_len == 0 and cfg.intra_period <= 1)
+    if inter and cfg.input_bitdepth != 8:
+        # both device inter paths need 8 bits; the reference then runs the
+        # per-class search_combined
+        _not_ported("inter slices at a bit depth other than 8",
+                    "item 7 (per-class and tool paths, K9-K12)")
     if cfg.mts in (1, 3):
         _not_ported("intra MTS (mts in (1, 3))",
                     "item 7 (per-class and tool paths, K9-K12)")
@@ -1403,12 +1408,14 @@ def _get_frames_combo_fn(classes, bitdepth: int = 8):
     from ..ops.rd_cost import rd_cost
     from ..ops.tables import device_tables
 
-    def frames_combo(srcs, qps, lam, wts, mode_bits):
+    def frames_combo(srcs, qps, lam, wts, mode_bits, refsrcs=None):
+        # refsrcs: planes of srcs' shape the intra references are read from
+        # (the pseudo-recon of inter slices); default srcs itself
         F = srcs.shape[0]
         vecs = []
         for (w, h, grid) in classes:
             tabs = device_tables(w, h, bitdepth, str(srcs.device))
-            refs, blocks = refs_blocks_grid(srcs, w, h, grid)
+            refs, blocks = refs_blocks_grid(srcs, w, h, grid, refsrcs)
             preds = predict67(refs, tabs)
             satds = satd67(preds, blocks)
             best, rdc, _satd = rd_cost(preds, blocks, satds, qps, lam, wts,
@@ -1422,7 +1429,31 @@ def _get_frames_combo_fn(classes, bitdepth: int = 8):
 
 def _get_inter_frame_combo_fn(classes, inter_classes, n_refs: int,
                               H: int, W: int, bitdepth: int = 8):
-    _not_ported("_get_inter_frame_combo_fn", "item 6 (dense inter search, K6-K8)")
+    """An inter frame's whole phase-1 search on the device: intra
+    candidates for every size class (K1 with references from the
+    QP-matched pseudo-recon plane -> K2 -> K3 -> K4) + the dense full-pel
+    inter search over every reference for the depth-allowed classes (K7,
+    then K6 per class; ops.me_frame), launched back to back with no host
+    sync (reference search flow: search.c search_cu / search_inter.c
+    search_pu_inter per-CU recursion).
+
+    fn(src, pseudo [H, W] int32 tensors, refs_pad [R, H+2r, W+2r] int32,
+    pen_sel, bits_tab [(2r+1)^2] float32, qps, lam, wts, mode_bits) -> ONE
+    flat float32 tensor: per class (intra best [B], intra cost [B]), then
+    per ref x inter class (mv offset idx [B], rd cost [B])."""
+    from ..ops.me_frame import frame_inter_search
+    intra = _get_frames_combo_fn(classes, bitdepth)
+
+    def combo(src, pseudo, refs_pad, pen_sel, bits_tab, qps, lam, wts,
+              mode_bits):
+        if tuple(src.shape) != (H, W) or refs_pad.shape[0] != n_refs:
+            raise ValueError("inter frame combo: unexpected input shapes")
+        vec_i = intra(src[None], qps, lam, wts, mode_bits, pseudo[None])[0]
+        vec_m = frame_inter_search(src, refs_pad, pen_sel, bits_tab,
+                                   inter_classes, qps, lam, wts, bitdepth)
+        return torch.cat([vec_i, vec_m])
+
+    return combo
 
 
 class _InterGridDescs:
@@ -1588,7 +1619,24 @@ class _HostInterDescs:
 
 
 def _get_pframe_intra_combo_fn(classes, H: int, W: int, bitdepth: int = 8):
-    _not_ported("_get_pframe_intra_combo_fn", "item 5 (low-delay P/B intra screen, K5)")
+    """Device intra screening for a P/B frame whose ME runs on the host:
+    K5 computes the QP-matched pseudo-recon of the source ON the device,
+    then every size class runs K1 (references from that plane, blocks from
+    the source) -> K2 -> K3 -> K4, back to back with no host sync.
+
+    fn(src [H, W] int32 tensor (H, W multiples of 16), qps, lam, wts,
+    mode_bits) -> ONE flat float32 tensor [best_0 | rd_0 | best_1 | ...]
+    on src's device, which the caller copies to the host once."""
+    from ..ops.pseudo_recon import pseudo_recon
+    intra = _get_frames_combo_fn(classes, bitdepth)
+
+    def combo(src, qps, lam, wts, mode_bits):
+        if tuple(src.shape) != (H, W):
+            raise ValueError(f"P/B intra screen: expected a {H}x{W} plane")
+        pseudo = pseudo_recon(src, qps, bitdepth)
+        return intra(src[None], qps, lam, wts, mode_bits, pseudo[None])[0]
+
+    return combo
 
 
 def _get_mip_combo_fn(w: int, h: int, bitdepth: int = 8):
@@ -1712,7 +1760,69 @@ class SliceEncoder:
         return self._dispatch_inter_frame_fused(ps, src_y, rl, fs)
 
     def predispatch_intra_screen(self, fs, src_planes):
-        _not_ported("predispatch_intra_screen", "item 5 (low-delay P/B intra screen, K5)")
+        """Stage-D device dispatch for an upcoming inter frame: the
+        intra screening depends only on the SOURCE (references come from
+        the on-device pseudo-recon, K5), so it can be launched a full
+        pipeline cycle before the frame's references exist. Returns an
+        opaque token for dispatch_inter_search(pretoken=...), or None."""
+        cfg, ctrl = self.cfg, self.ctrl
+        if not self.open_loop or cfg.lmcs_enable \
+                or cfg.ime_algorithm != 0 or not self.native_entropy \
+                or ctrl.bitdepth != 8 or cfg.mts in (1, 3):
+            return None
+        from .partition import PartitionSearch
+        ps = PartitionSearch(ctrl, cfg, qp=fs.qp, is_intra=False)
+        entries = self._fused_entries(ps)
+        if entries is None:
+            return None
+        src_y = pad_plane(src_planes.y, ctrl.in_width, ctrl.in_height)
+        return {"qp": fs.qp, "src_y": src_y, "ps": ps, "entries": entries,
+                "fetch": self._launch_intra_screen(entries, src_y, fs.qp)}
+
+    def _launch_intra_screen(self, entries, src_y: np.ndarray, qp: int):
+        """Start the intra screen of an inter frame: the C++ screen on a
+        worker thread (cfg.host_intra_screen), else K5 -> K1..K4 on the
+        device with no host sync. Returns a thunk that gives the flat
+        result [best_0 | rd_0 | best_1 | ...] on the host."""
+        from .partition import qp_to_lambda
+        ctrl = self.ctrl
+        lam = qp_to_lambda(qp, False)
+        if self.cfg.host_intra_screen:
+            from ..native import host_screen_native
+            from ..ops.fast_cost_tables import FAST_COEFF_WTS
+            wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+            cds = [(w_, h_, *g) for (_k, w_, h_, _p, g) in entries]
+            if self._fetch_exec is None:
+                from concurrent.futures import ThreadPoolExecutor
+                self._fetch_exec = ThreadPoolExecutor(2)
+            return self._fetch_exec.submit(
+                host_screen_native, src_y, ctrl.luma_qp_scaled(qp),
+                ctrl.bitdepth, lam, wts, _MODE_BITS, cds).result
+        # the device pseudo-recon runs on a 16-px tile grid: the screen's
+        # source is edge-padded up to 16-multiples; the class grids come
+        # from the real geometry and already cover the padded extent
+        # (e.g. 1080 -> 34 rows of 32)
+        H, W = ctrl.in_height, ctrl.in_width
+        H16, W16 = -(-H // 16) * 16, -(-W // 16) * 16
+        cache = getattr(self, "_src_dev", None)
+        if cache is None or cache[0] is not src_y:
+            src_scr = src_y if (H16 == H and W16 == W) \
+                else pad_plane(src_y, W16, H16)
+            self._src_dev = (src_y, self._to_device(src_scr, np.int32))
+        classes = tuple((w_, h_, g) for (_k, w_, h_, _p, g) in entries)
+        fn = _get_pframe_intra_combo_fn(classes, H16, W16, ctrl.bitdepth)
+        tabs = frame_tables(qp, str(self.device))
+        outs = fn(self._src_dev[1], ctrl.luma_qp_scaled(qp),
+                  float(np.float32(lam)), tabs["wts"], tabs["mode_bits"])
+        # the copy to the host is queued right behind the launches, so it
+        # does not wait for work queued later (in the two-in-flight
+        # pipeline, frame N-1's stage M+R)
+        return _fetch_async(outs)
+
+    def _to_device(self, a: np.ndarray, dtype=None) -> torch.Tensor:
+        """A host array as a contiguous tensor on the encoder's device."""
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)) \
+            .to(self.device)
 
     def _uniq_refs(self, rl, is_b: bool):
         """Unique reference planes across both lists (GPB lists repeat):
@@ -1751,18 +1861,12 @@ class SliceEncoder:
         if ctrl.bitdepth != 8 or cfg.mts in (1, 3) \
                 or not self.native_entropy:
             return None
-        H, W = ctrl.in_height, ctrl.in_width
-        # the device pseudo-recon needs 16-multiples; the screen source
-        # is edge-padded up to (H16, W16) while ME/finalize stay on the
-        # real geometry
-        H16, W16 = -(-H // 16) * 16, -(-W // 16) * 16
-        fetch_fut = None
         if pretoken is not None and pretoken["qp"] == fs.qp:
             # stage-D dispatch already in flight (2-in-flight pipeline)
             ps = pretoken["ps"]
             src_y = pretoken["src_y"]
             entries = pretoken["entries"]
-            fetch_fut = pretoken.get("fetch")
+            fetch = pretoken["fetch"]
         else:
             pretoken = None
             entries = self._fused_entries(ps)
@@ -1772,17 +1876,7 @@ class SliceEncoder:
         uniq, refmap, l1_index, l0_ids, l1_ids = self._uniq_refs(rl, is_b)
         if not uniq:
             return None
-        # pu-depth-inter is a soft constraint like pu-depth-intra: the
-        # reference codes large merge/skip CUs on quiet inter content at
-        # every preset (its B-frame bit budget depends on them), so the
-        # lattice always offers inter candidates down to depth 1 (32x32;
-        # 64 would need the inter TU split). Measured: seed-3 RA8 B
-        # frames drop ~6x in bits.
-        lo, hi = cfg.pu_depth_inter
-        lo = min(lo, 1)
-        inter_entries = [e for e in entries
-                         if lo <= (LCU_WIDTH // max(e[1], e[2]))
-                         .bit_length() - 1 <= hi]
+        inter_entries = self._inter_entries(entries)
         if not inter_entries:
             return None
         from ..native import me_frame_native
@@ -1792,24 +1886,9 @@ class SliceEncoder:
         lam = qp_to_lambda(qp, False)
         wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
 
-        if pretoken is not None:
-            outs = pretoken["outs"]
-        elif cfg.host_intra_screen:
-            from ..native import host_screen_native
-            from ..ops.fast_cost_tables import FAST_COEFF_WTS as _FW
-            cds8 = [(w_, h_, *g) for (_k, w_, h_, _p, g) in entries]
-            if self._fetch_exec is None:
-                from concurrent.futures import ThreadPoolExecutor
-                self._fetch_exec = ThreadPoolExecutor(2)
-            outs = None
-            fetch_fut = self._fetch_exec.submit(
-                host_screen_native, src_y, ctrl.luma_qp_scaled(fs.qp),
-                ctrl.bitdepth, qp_to_lambda(fs.qp, False),
-                _FW[min(fs.qp, len(_FW) - 1)], _MODE_BITS, cds8)
-        else:
-            # device: intra candidates (the pseudo-recon screen, K5)
-            _not_ported("the device intra screen of "
-                        "_dispatch_inter_frame_hostme", "item 5 (low-delay P/B intra screen, K5)")
+        if pretoken is None:
+            # (with a pretoken, stage D already launched the screen)
+            fetch = self._launch_intra_screen(entries, src_y, qp)
 
         # host: C++ full-pel ME while the device crunches
         class_descs = [(w_, h_, *g)
@@ -1829,8 +1908,7 @@ class SliceEncoder:
 
         def resolve():
             from .partition import INF
-            flat = fetch_fut.result() if fetch_fut is not None \
-                else np.asarray(outs)       # ONE fetch
+            flat = fetch()                  # ONE copy to the host
             off = 0
             intra = {}
             for e in entries:
@@ -1976,11 +2054,241 @@ class SliceEncoder:
 
     def _dispatch_inter_frame_fused(self, ps, src_y: np.ndarray, rl,
                                     fs):
-        _not_ported("_dispatch_inter_frame_fused", "item 6 (dense inter search, K6-K8)")
+        """Whole-frame inter search on the device: intra + dense full-pel
+        inter for every size class, launched back to back (K1-K4, K7, K6),
+        quarter-pel as a second leaf-level launch after the partition DP
+        (K8, ops.me_frame). Returns a resolve() thunk -> ctus, or None when
+        the config needs the per-class path (MIP, MTS RD, 10-bit,
+        non-grid geometry)."""
+        cfg, ctrl = self.cfg, self.ctrl
+        if ctrl.bitdepth != 8 or cfg.mts in (1, 3):
+            return None
+        entries = self._fused_entries(ps)
+        if entries is None:
+            return None
+        # unique reference planes across both lists (GPB lists repeat)
+        is_b = fs.slicetype == SliceType.B
+        uniq, refmap, l1_index, l0_ids, l1_ids = self._uniq_refs(rl, is_b)
+        if not uniq:
+            return None
+        inter_entries = self._inter_entries(entries)
+        if not inter_entries:
+            return None
+        from ..ops.me import make_mv_penalty
+        from ..ops.me_frame import mv_bits_table
+        from ..ops.pseudo_recon import pseudo_recon_plane
+        from .partition import qp_to_lambda
+        classes = tuple((w_, h_, g) for (_k, w_, h_, _p, g) in entries)
+        iclasses = tuple((w_, h_, g)
+                         for (_k, w_, h_, _p, g) in inter_entries)
+        H, W = ctrl.in_height, ctrl.in_width
+        R_ = len(uniq)
+        fn = _get_inter_frame_combo_fn(classes, iclasses, R_, H, W,
+                                       ctrl.bitdepth)
+        qp = fs.qp
+        lam = qp_to_lambda(qp, False)
+        r = 16
+        pseudo = pseudo_recon_plane(src_y, ctrl.luma_qp_scaled(qp),
+                                    ctrl.bitdepth)
+        refs_pad = np.stack([np.pad(p.y, r, mode="edge").astype(np.int32)
+                             for (_kid, p) in uniq])
+        pen = make_mv_penalty(r, np.sqrt(lam)).reshape(-1)
+        bits_tab = mv_bits_table(r)
+        tabs = frame_tables(qp, str(self.device))
+        dev = self._to_device
+        outs = fn(dev(src_y, np.int32), dev(pseudo, np.int32), dev(refs_pad),
+                  dev(pen), dev(bits_tab), ctrl.luma_qp_scaled(qp),
+                  float(np.float32(lam)), tabs["wts"], tabs["mode_bits"])
+        # the copy to the host starts as soon as the device finishes, so
+        # resolve() finds the data already host-side (the frame pipeline
+        # runs the previous frame's entropy in between)
+        fetch = _fetch_async(outs)
+
+        def resolve():
+            from .partition import INF
+            flat = fetch()                  # ONE copy to the host
+            off = 0
+            intra = {}
+            for e in entries:
+                (_key, w_, h_, positions, _g) = e
+                n_b = len(positions)
+                intra[id(e)] = (flat[off:off + n_b].astype(np.int32),
+                                flat[off + n_b:off + 2 * n_b])
+                off += 2 * n_b
+            imv = {}
+            icost = {}
+            for ri in range(R_):
+                for e in inter_entries:
+                    n_b = len(e[3])
+                    imv.setdefault(id(e), []).append(
+                        flat[off:off + n_b].astype(np.int32))
+                    icost.setdefault(id(e), []).append(
+                        flat[off + n_b:off + 2 * n_b])
+                    off += 2 * n_b
+            cost, mode = {}, {}
+            for e in entries:
+                (key, w_, h_, positions, g) = e
+                gx, gy = g[4], g[5]
+                ibest, ic = intra[id(e)]
+                if id(e) in imv:
+                    mvs = np.stack(imv[id(e)])          # [R, B]
+                    costs = np.stack(icost[id(e)])      # [R, B]
+                    rmin = costs.min(axis=0)
+                    rarg = costs.argmin(axis=0)
+                    choice = np.where(rmin < ic, rarg, -1)
+                    cgrid = np.minimum(ic, rmin)
+                    l0b = l1b = None
+                    if is_b and l1_ids:
+                        l0b = np.asarray(l0_ids)[
+                            costs[l0_ids].argmin(axis=0)]
+                        l1b = np.asarray(l1_ids)[
+                            costs[l1_ids].argmin(axis=0)]
+                    descs = _InterGridDescs(g, ibest, choice, mvs,
+                                            refmap, l0b, l1b, r)
+                else:
+                    cgrid = ic
+                    descs = _GridDescs(ibest, g)
+                if key[0] == "shape":
+                    _kind, gw, gh = key
+                    c = np.full((gh, gw), INF)
+                    c[:gy, :gx] = cgrid.reshape(gy, gx)
+                    cost[(w_, h_)] = c
+                    mode[(w_, h_)] = descs
+                else:
+                    _kind, s, vert = key
+                    gh2 = -(-ctrl.in_height // s)
+                    gw2 = -(-ctrl.in_width // s)
+                    c = np.full((gh2, gw2), INF)
+                    c[:gy, :gx] = cgrid.reshape(gy, gx)
+                    cost[("ttv" if vert else "tth", s)] = c
+                    mode[("ttv" if vert else "tth", s)] = descs
+            ctus = ps._decide(cost, mode)
+            if self._native_inter \
+                    and not getattr(self, "force_python_inter_finalize",
+                                    False):
+                # native whole-frame finalize does the qpel refine in C++
+                # (inter.cpp pass 1); stash the phase-1 context for it (or
+                # for the python fallback when the frame gates fail)
+                self._fused_ctx = (uniq, refmap, l1_index, src_y, fs)
+            else:
+                self._refine_inter_leaves(ctus, uniq, refmap, l1_index,
+                                          src_y, fs)
+            return ctus
+
+        return resolve
 
     def _refine_inter_leaves(self, ctus, uniq, refmap, l1_index,
                              src_y: np.ndarray, fs) -> None:
-        _not_ported("_refine_inter_leaves", "item 6 (dense inter search, K6-K8)")
+        """Leaf-level quarter-pel refinement + bipred decision, one
+        dispatch for every decided inter leaf regardless of shape
+        (8x8-tile decomposition, ops.me_frame.make_leaf_qpel_fn).
+        Replaces the per-class 49-offset refinement of the per-class
+        path (search_inter.c:1029 fractional search analog)."""
+        from ..ops.cost import satd as satd_np
+        from ..ops.inter import fetch_extended_block, mc_luma_bi
+        from ..ops.me import mv_bits_est
+        from ..ops.me_frame import TILE, leaf_qpel
+        from .partition import qp_to_lambda
+        cfg, ctrl = self.cfg, self.ctrl
+        is_b = fs.slicetype == SliceType.B
+        lam_sqrt = float(np.sqrt(qp_to_lambda(fs.qp, False)))
+        cands = []                      # (leaf, uniq idx, mv16, role)
+        for node in ctus:
+            for leaf in node.leaves():
+                d = leaf.cu_desc
+                if d.get("type") != "inter":
+                    continue
+                if is_b and "_l0" in d:
+                    u0, mv0 = d["_l0"]
+                    u1, mv1 = d["_l1"]
+                    cands.append((leaf, u0, mv0, 0))
+                    cands.append((leaf, u1, mv1, 1))
+                else:
+                    cands.append((leaf, d["_u"], d["mv"], 0))
+        if not cands:
+            return
+        pen49 = np.empty(49, dtype=np.float32)
+        for k in range(49):
+            dxq, dyq = k % 7 - 3, k // 7 - 3
+            pen49[k] = lam_sqrt * ((0.0 if dxq == 0 else 2.0)
+                                   + (0.0 if dyq == 0 else 2.0))
+        tiles, blocks, ids = [], [], []
+        for ci, (leaf, u, mv, _role) in enumerate(cands):
+            plane = uniq[u][1].y
+            fx = leaf.x + (mv[0] >> 4)
+            fy = leaf.y + (mv[1] >> 4)
+            win = fetch_extended_block(plane, fx, fy, leaf.w, leaf.h,
+                                       5, 5, 5, 5)
+            blk = src_y[leaf.y:leaf.y + leaf.h, leaf.x:leaf.x + leaf.w]
+            for i in range(leaf.h // TILE):
+                for j in range(leaf.w // TILE):
+                    tiles.append(win[TILE * i:TILE * i + 18,
+                                     TILE * j:TILE * j + 18])
+                    blocks.append(blk[TILE * i:TILE * i + TILE,
+                                      TILE * j:TILE * j + TILE])
+                    ids.append(ci)
+        # K8 over every tile of every candidate (no shape buckets: nothing
+        # recompiles per shape here)
+        dev = self._to_device
+        _best_d, _bc_d, seg_d = leaf_qpel(
+            dev(np.stack(tiles), np.int32), dev(np.stack(blocks), np.int32),
+            dev(np.asarray(ids), np.int32), len(cands), dev(pen49),
+            ctrl.bitdepth)
+        seg = seg_d.cpu().numpy()
+
+        def refined(i):
+            # two-stage selection (half-pel square then quarter-pel
+            # neighbors, search_inter.c search_frac:1029 structure);
+            # the C++ finalize (inter.cpp) evaluates the same subset
+            k = _two_stage_qpel(seg[i], pen49)
+            mv = cands[i][2]
+            return ((mv[0] + (k % 7 - 3) * 4, mv[1] + (k // 7 - 3) * 4),
+                    float(seg[i, k]))
+
+        def uni_bits(mv):
+            return mv_bits_est(mv[0] >> 2) + mv_bits_est(mv[1] >> 2) \
+                + 4.0
+
+        i = 0
+        while i < len(cands):
+            leaf, u0, _mv, role = cands[i]
+            d = leaf.cu_desc
+            pair = (role == 0 and i + 1 < len(cands)
+                    and cands[i + 1][0] is leaf and cands[i + 1][3] == 1)
+            if not pair:
+                d["mv"], _s = refined(i)
+                i += 1
+                continue
+            u1 = cands[i + 1][1]
+            mv0, s0 = refined(i)
+            mv1, s1 = refined(i + 1)
+            c0 = s0 + lam_sqrt * uni_bits(mv0)
+            c1 = s1 + lam_sqrt * uni_bits(mv1)
+            cb = None
+            if cfg.bipred and leaf.w + leaf.h > 12:
+                pred_bi = mc_luma_bi(uniq[u0][1].y, uniq[u1][1].y,
+                                     leaf.x, leaf.y, leaf.w, leaf.h,
+                                     mv0, mv1, ctrl.bitdepth)
+                blk = src_y[leaf.y:leaf.y + leaf.h,
+                            leaf.x:leaf.x + leaf.w]
+                cb = float(satd_np(blk, pred_bi)) + lam_sqrt * (
+                    uni_bits(mv0) + uni_bits(mv1))
+            if cb is not None and cb < c0 and cb < c1:
+                d.clear()
+                d.update({"type": "bi", "mv0": mv0, "ref0": refmap[u0][1],
+                          "mv1": mv1, "ref1": l1_index.get(u1, 0)})
+            elif c1 < c0:
+                d.clear()
+                d.update({"type": "inter", "mv": mv1, "list": 1,
+                          "ref": l1_index.get(u1, 0)}
+                         if refmap[u1][0] == 1 else
+                         {"type": "inter", "mv": mv1, "list": 0,
+                          "ref": refmap[u1][1]})
+            else:
+                d.clear()
+                d.update({"type": "inter", "mv": mv0, "list": 0,
+                          "ref": refmap[u0][1]})
+            i += 2
 
     def _finalize_sequential(self, leaves, fs, src, rec, coded_mask,
                              refs, lmcs=None, ctu_qps=None) -> None:
@@ -2398,6 +2706,21 @@ class SliceEncoder:
 
         return resolve
 
+    def _inter_entries(self, entries):
+        """The entries of _fused_entries that get inter candidates: the
+        classes pu_depth_inter allows, with a depth-1 (32x32) floor.
+        pu-depth-inter is a soft constraint like pu-depth-intra: the
+        reference codes large merge/skip CUs on quiet inter content at
+        every preset (its B-frame bit budget depends on them), so the
+        lattice always offers inter candidates down to depth 1 (64 would
+        need the inter TU split). Measured: seed-3 RA8 B frames drop ~6x
+        in bits."""
+        lo, hi = self.cfg.pu_depth_inter
+        lo = min(lo, 1)
+        return [e for e in entries
+                if lo <= (LCU_WIDTH // max(e[1], e[2])).bit_length() - 1
+                <= hi]
+
     def _fused_entries(self, ps):
         """Size classes of the fused frame search with their static
         position grids; None when the config needs per-class dispatches
@@ -2486,7 +2809,7 @@ class SliceEncoder:
              for sp in src_planes_list]).astype(np.int32)
         qp = fss[0].qp
         tabs = frame_tables(qp, str(self.device))
-        outs = fn(torch.from_numpy(src_stack).to(self.device),
+        outs = fn(self._to_device(src_stack),
                   ctrl.luma_qp_scaled(qp), float(np.float32(qp_to_lambda(qp))),
                   tabs["wts"], tabs["mode_bits"])
         fetch = _fetch_async(outs)
@@ -2519,8 +2842,7 @@ class SliceEncoder:
         fn = _get_frame_combo_fn(classes, ctrl.bitdepth)
         qp = self.frame_qp
         tabs = frame_tables(qp, str(self.device))
-        src = torch.from_numpy(np.ascontiguousarray(src_y, dtype=np.int32))
-        outs = fn(src.to(self.device), ctrl.luma_qp_scaled(qp),
+        outs = fn(self._to_device(src_y, np.int32), ctrl.luma_qp_scaled(qp),
                   float(np.float32(qp_to_lambda(qp))), tabs["wts"],
                   tabs["mode_bits"])
         fetch = _fetch_async(outs)

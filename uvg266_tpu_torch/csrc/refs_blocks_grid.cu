@@ -7,8 +7,11 @@
 // For block b = (by, bx) at (x, y) = (x0 + bx*sx, y0 + by*sy) of frame f:
 //   top[i]  = P[y, x + min(i, Lt-1)]      Lt = min(3w+3, REF_LEN)
 //   left[i] = P[y + min(i, Ll-1), x]      Ll = min(3h+3, REF_LEN)
-// where P is the source edge-padded by one at top and left:
-//   P[r, c] = src[clamp(r-1), clamp(c-1)].
+// where P is the reference plane edge-padded by one at top and left:
+//   P[r, c] = refsrc[clamp(r-1), clamp(c-1)],
+// refsrc being src itself (all-intra) or a plane of the same shape that the
+// references are read from while the blocks still come from src (the
+// QP-matched pseudo-reconstruction of inter slices, K5).
 // The filtered copies are [1 2 1]/4 over positions 1..2w-1 (top) and
 // 1..2h-1 (left); position 0 of both is (l[1] + 2*l[0] + t[1] + 2) >> 2,
 // and positions from 2w (2h) on are the unfiltered samples. Output
@@ -48,7 +51,8 @@ __device__ __forceinline__ int left_at(const int* __restrict__ s, const Grid& g,
   return psample(s, g, y + min(i, g.Ll - 1), x);
 }
 
-__global__ void refs_blocks_grid_kernel(const int* __restrict__ src, Grid g,
+__global__ void refs_blocks_grid_kernel(const int* __restrict__ src,
+                                        const int* __restrict__ refsrc, Grid g,
                                         int F, int* __restrict__ refs,
                                         int* __restrict__ blocks) {
   const int n_refs = F * g.B * uvg::NREF;
@@ -60,7 +64,7 @@ __global__ void refs_blocks_grid_kernel(const int* __restrict__ src, Grid g,
       const int j = idx % uvg::NREF;
       const int fb = idx / uvg::NREF;
       const int b = fb % g.B;
-      const int* s = src + static_cast<long long>(fb / g.B) * g.H * g.W;
+      const int* s = refsrc + static_cast<long long>(fb / g.B) * g.H * g.W;
       const int x = g.x0 + (b % g.gx) * g.sx;
       const int y = g.y0 + (b / g.gx) * g.sy;
       const int sec = j / uvg::REF_LEN;
@@ -99,7 +103,8 @@ __global__ void refs_blocks_grid_kernel(const int* __restrict__ src, Grid g,
 
 }  // namespace
 
-extern "C" int refs_blocks_grid(const void* src, int F, int H, int W, int w,
+extern "C" int refs_blocks_grid(const void* src, const void* refsrc, int F,
+                                int H, int W, int w,
                                 int h, int x0, int y0, int sx, int sy, int gx,
                                 int gy, void* refs, void* blocks, void* stream) {
   Grid g{H, W, w, h, x0, y0, sx, sy, gx, gx * gy,
@@ -109,7 +114,8 @@ extern "C" int refs_blocks_grid(const void* src, int F, int H, int W, int w,
   const int threads = 256;
   refs_blocks_grid_kernel<<<uvg::grid_for(n, threads), threads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(src), g, F, static_cast<int*>(refs),
+      static_cast<const int*>(src), static_cast<const int*>(refsrc), g, F,
+      static_cast<int*>(refs),
       static_cast<int*>(blocks));
   return static_cast<int>(cudaGetLastError());
 }

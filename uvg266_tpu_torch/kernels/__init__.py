@@ -34,8 +34,8 @@ _HEADERS = ("common.cuh",)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> argtypes of its C entry (same name), the stream last
 SIGNATURES = {
-    # src, F, H, W, w, h, x0, y0, sx, sy, gx, gy, refs, blocks
-    "refs_blocks_grid": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    # src, refsrc, F, H, W, w, h, x0, y0, sx, sy, gx, gy, refs, blocks
+    "refs_blocks_grid": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P],
     # refs, B, w, h, max_pix, K, W, pdpc_wl, pdpc_sidx, hv_wl, hv_sidx,
     # needs_clip, pdpc_on, hv_on, hv_topleft, pd_wl, pd_wt, preds
@@ -46,6 +46,18 @@ SIGNATURES = {
     # bitdepth, q_bits, scale, add, iscale, dq_shift, lam, best, rd, satd
     "rd_cost": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                 _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    # src, H, W, mat, bitdepth, q_bits, scale, add, dscale, dq_shift, out
+    "pseudo_recon": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # preds, src, extra_bits, B, w, h, mat_w, mat_h, wts, bitdepth, q_bits,
+    # scale, add, iscale, dq_shift, lam, rd
+    "rd_cost_pred": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _F, _P, _P],
+    # src, ref_pad, H, W, r, pen, bits_tab, classes (host), n_classes, ssd,
+    # idx, pred, blk, extra
+    "frame_inter": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                    _P],
+    # windows, blocks, leaf_ids, nt, nl, pen, bitdepth, satd, best, cost, seg
+    "leaf_qpel": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P],
 }
 LAUNCHES = dict.fromkeys(SIGNATURES, 0)
 _LIBS: dict = {}

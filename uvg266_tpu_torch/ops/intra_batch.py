@@ -7,7 +7,8 @@ all-intra frame search each come as a plain PyTorch version plus a wrapper
 that launches the hand-written CUDA kernel (csrc/) for tensors on the card:
 
 - K1 ``refs_blocks_grid``: reference lines and source blocks on a static
-  position grid (reference: make_refs_blocks_grid_fn);
+  position grid, the references optionally from a separate plane
+  (reference: make_refs_blocks_grid_fn and its ``refsrc``);
 - K2 ``predict67``: all 67 modes (reference: make_predict_matmul_fn, the
   bit-exact twin of the gather form make_predict_fn);
 - K3 ``satd67``: per-mode SATD (reference: make_satd67_fn).
@@ -384,13 +385,18 @@ def _smooth_pack(top, left, w: int, h: int):
     return torch.cat([top, left, ft, fl], dim=1)
 
 
-def refs_blocks_grid_plain(src: torch.Tensor, w: int, h: int, grid):
+def refs_blocks_grid_plain(src: torch.Tensor, w: int, h: int, grid,
+                           refsrc: torch.Tensor | None = None):
     """K1, plain version. src [H, W] (or [F, H, W]) int32 -> (refs
     [F*B, 4*REF_LEN], blocks [F*B, h, w]) int32 for the blocks of the
     static grid (x0, y0, sx, sy, gx, gy), frames outermost. The edge-padded
     plane of the reference is read through clamped coordinates:
-    P[r, c] = src[clamp(r - 1), clamp(c - 1)]."""
+    P[r, c] = refsrc[clamp(r - 1), clamp(c - 1)]. ``refsrc`` (default: src
+    itself) is a plane of src's shape the top/left references are read from
+    while the blocks still come from src (the QP-matched pseudo-recon of
+    inter slices)."""
     s = src if src.dim() == 3 else src[None]
+    rs = s if refsrc is None else refsrc.reshape(s.shape)
     F, H, W = s.shape
     xs, ys = _grid_xy(grid, s.device)
     B = xs.numel()
@@ -399,7 +405,7 @@ def refs_blocks_grid_plain(src: torch.Tensor, w: int, h: int, grid):
     i = torch.arange(REF_LEN, device=s.device)[None, :]
 
     def padded(r, c):
-        return s[:, (r - 1).clamp(0, H - 1), (c - 1).clamp(0, W - 1)]
+        return rs[:, (r - 1).clamp(0, H - 1), (c - 1).clamp(0, W - 1)]
 
     top = padded(ys[:, None].expand(B, REF_LEN),
                  xs[:, None] + i.clamp(max=Lt - 1))
@@ -413,20 +419,27 @@ def refs_blocks_grid_plain(src: torch.Tensor, w: int, h: int, grid):
     return refs, blocks.reshape(F * B, h, w)
 
 
-def refs_blocks_grid(src: torch.Tensor, w: int, h: int, grid):
-    """K1: refs_blocks_grid_plain on the CPU, the CUDA kernel on the card."""
+def refs_blocks_grid(src: torch.Tensor, w: int, h: int, grid,
+                     refsrc: torch.Tensor | None = None):
+    """K1: refs_blocks_grid_plain on the CPU, the CUDA kernel on the card.
+    ``refsrc``, when given, must have src's shape."""
+    if refsrc is not None and refsrc.shape != src.shape:
+        raise ValueError("refs_blocks_grid: refsrc must have src's shape")
     if src.device.type == "cpu":
-        return refs_blocks_grid_plain(src, w, h, grid)
-    dev = kernels.check_cuda("refs_blocks_grid", src)
+        return refs_blocks_grid_plain(src, w, h, grid, refsrc)
+    rsrc = src if refsrc is None else refsrc
+    dev = kernels.check_cuda("refs_blocks_grid", src, rsrc)
     s = src if src.dim() == 3 else src[None]
     _check("refs_blocks_grid", s, torch.int32, 3)
+    _check("refs_blocks_grid", rsrc, torch.int32, src.dim())
     F, H, W = s.shape
     x0, y0, sx, sy, gx, gy = (int(v) for v in grid)
     B = gx * gy
     refs = torch.empty((F * B, 4 * REF_LEN), dtype=torch.int32, device=dev)
     blocks = torch.empty((F * B, h, w), dtype=torch.int32, device=dev)
-    kernels.launch("refs_blocks_grid", dev, s.data_ptr(), F, H, W, w, h,
-                   x0, y0, sx, sy, gx, gy, refs.data_ptr(), blocks.data_ptr())
+    kernels.launch("refs_blocks_grid", dev, s.data_ptr(), rsrc.data_ptr(), F,
+                   H, W, w, h, x0, y0, sx, sy, gx, gy, refs.data_ptr(),
+                   blocks.data_ptr())
     return refs, blocks
 
 

@@ -10,7 +10,9 @@ K4 ``rd_cost`` comes as a plain PyTorch version plus a wrapper that
 launches the hand-written CUDA kernel (csrc/rd_cost.cu) for tensors on the
 card. It takes the per-mode SATDs of K3 (ops.intra_batch.satd67) as an
 input; ``satd67`` followed by ``rd_cost`` is the reference's
-make_rd_cost_fn.
+make_rd_cost_fn. K6 ``rd_cost_pred`` (csrc/rd_cost_pred.cu, the
+reference's make_rd_cost_pred_fn) costs one given prediction per block,
+with inter rounding and extra bits; both share the RD tail.
 
 Both versions compute in int32 where the reference does (x64 off: its
 int64 casts are int32), wrapping on overflow as it does. The bits estimate
@@ -72,6 +74,33 @@ def _imatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 _PLAIN_CHUNK = 1 << 24
 
 
+def _rd_tail_plain(pred, blk, c: dict, w: int, h: int, bitdepth: int, wts,
+                   tables: dict):
+    """The RD tail shared by K4 and K6 (csrc/common.cuh rd_tail_block):
+    pred, blk [b, h, w] int64 -> (bits [b] float32 as per-bucket counts
+    times wts, ssd [b] float32 of the int32-wrapped SSD)."""
+    s1, s2 = fwd_shifts(w, h, bitdepth)
+    si1, si2 = inv_shifts(bitdepth)
+    mw = tables["mat_w"].long()
+    mh = tables["mat_h"].long()
+    t = _wrap((_imatmul(blk - pred, mw.T) + (1 << (s1 - 1))) >> s1, 16)
+    coef = _wrap((_imatmul(mh, t) + (1 << (s2 - 1))) >> s2, 16)
+    level = _wrap(coef.abs() * c["scale"] + c["add"], 32) >> c["q_bits"]
+    level = level.clamp(0, 32767)
+    bucket = level.clamp(max=3)
+    cnt = [(bucket == k).sum(dim=(-2, -1)).to(torch.float32)
+           for k in range(4)]
+    bits = ((cnt[0] * wts[0] + cnt[1] * wts[1]) + cnt[2] * wts[2]) \
+        + cnt[3] * wts[3]
+    dq = _wrap(coef.sign() * level * c["iscale"]
+               + (1 << (c["dq_shift"] - 1)), 32) >> c["dq_shift"]
+    dq = dq.clamp(-32768, 32767)
+    u = ((_imatmul(mh.T, dq) + (1 << (si1 - 1))) >> si1).clamp(-32768, 32767)
+    r = ((_imatmul(u, mw) + (1 << (si2 - 1))) >> si2).clamp(-32768, 32767)
+    d = blk - (pred + r).clamp(0, (1 << bitdepth) - 1)
+    return bits, _wrap((d * d).sum(dim=(-2, -1)), 32).to(torch.float32)
+
+
 def rd_cost_plain(preds, src, satds, qp: int, lam: float, wts, mode_bits,
                   tables: dict, bitdepth: int):
     """K4, plain version. preds [B, 67, h, w], src [B, h, w], satds [B, 67]
@@ -80,15 +109,11 @@ def rd_cost_plain(preds, src, satds, qp: int, lam: float, wts, mode_bits,
     satd_best [B] int32)."""
     B, _M, h, w = preds.shape
     c = quant_consts(w, h, bitdepth, qp)
-    s1, s2 = fwd_shifts(w, h, bitdepth)
-    si1, si2 = inv_shifts(bitdepth)
     dev = preds.device
     lam32 = torch.tensor(np.float32(lam), device=dev)
     mode_cost = satds.to(torch.float32) + torch.sqrt(lam32) * mode_bits[None, :]
     best = torch.argmin(mode_cost, dim=1)          # the first minimum
     satd_best = satds.gather(1, best[:, None])[:, 0]
-    mw = tables["mat_w"].long()
-    mh = tables["mat_h"].long()
     bits = torch.empty((B,), dtype=torch.float32, device=dev)
     ssd = torch.empty((B,), dtype=torch.float32, device=dev)
     step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
@@ -96,24 +121,8 @@ def rd_cost_plain(preds, src, satds, qp: int, lam: float, wts, mode_bits,
         sl = slice(b0, min(b0 + step, B))
         pred = preds[sl][torch.arange(sl.stop - sl.start, device=dev),
                          best[sl]].long()
-        blk = src[sl].long()
-        t = _wrap((_imatmul(blk - pred, mw.T) + (1 << (s1 - 1))) >> s1, 16)
-        coef = _wrap((_imatmul(mh, t) + (1 << (s2 - 1))) >> s2, 16)
-        level = _wrap(coef.abs() * c["scale"] + c["add"], 32) >> c["q_bits"]
-        level = level.clamp(0, 32767)
-        bucket = level.clamp(max=3)
-        cnt = [(bucket == k).sum(dim=(-2, -1)).to(torch.float32)
-               for k in range(4)]
-        bits[sl] = ((cnt[0] * wts[0] + cnt[1] * wts[1]) + cnt[2] * wts[2]) \
-            + cnt[3] * wts[3]
-        dq = _wrap(coef.sign() * level * c["iscale"]
-                   + (1 << (c["dq_shift"] - 1)), 32) >> c["dq_shift"]
-        dq = dq.clamp(-32768, 32767)
-        u = ((_imatmul(mh.T, dq) + (1 << (si1 - 1))) >> si1).clamp(-32768,
-                                                                     32767)
-        r = ((_imatmul(u, mw) + (1 << (si2 - 1))) >> si2).clamp(-32768, 32767)
-        d = blk - (pred + r).clamp(0, (1 << bitdepth) - 1)
-        ssd[sl] = _wrap((d * d).sum(dim=(-2, -1)), 32).to(torch.float32)
+        bits[sl], ssd[sl] = _rd_tail_plain(pred, src[sl].long(), c, w, h,
+                                           bitdepth, wts, tables)
     rd = ssd + lam32 * (bits + mode_bits[best])
     return best.to(torch.int32), rd, satd_best
 
@@ -145,3 +154,48 @@ def rd_cost(preds, src, satds, qp: int, lam: float, wts, mode_bits,
                    c["add"], c["iscale"], c["dq_shift"], float(lam),
                    best.data_ptr(), rd.data_ptr(), satd_best.data_ptr())
     return best, rd, satd_best
+
+
+def rd_cost_pred_plain(pred, src, qp: int, lam: float, wts, extra_bits,
+                       tables: dict, bitdepth: int):
+    """K6, plain version: the RD cost of one given prediction per block
+    (the inter path, quant rounding 85). pred, src [B, h, w] int32; wts
+    [4], extra_bits [B] float32 -> rd [B] float32 =
+    ssd + lam * (bits + extra_bits)."""
+    B, h, w = pred.shape
+    c = quant_consts(w, h, bitdepth, qp, is_intra_slice=False)
+    dev = pred.device
+    lam32 = torch.tensor(np.float32(lam), device=dev)
+    bits = torch.empty((B,), dtype=torch.float32, device=dev)
+    ssd = torch.empty((B,), dtype=torch.float32, device=dev)
+    step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
+    for b0 in range(0, B, step):
+        sl = slice(b0, min(b0 + step, B))
+        bits[sl], ssd[sl] = _rd_tail_plain(pred[sl].long(), src[sl].long(),
+                                           c, w, h, bitdepth, wts, tables)
+    return ssd + lam32 * (bits + extra_bits)
+
+
+def rd_cost_pred(pred, src, qp: int, lam: float, wts, extra_bits,
+                 tables: dict, bitdepth: int):
+    """K6: rd_cost_pred_plain on the CPU, the CUDA kernel on the card."""
+    if pred.device.type == "cpu":
+        return rd_cost_pred_plain(pred, src, qp, lam, wts, extra_bits,
+                                  tables, bitdepth)
+    dev = kernels.check_cuda("rd_cost_pred", pred, src, wts, extra_bits,
+                             tables["mat_w"], tables["mat_h"])
+    B, h, w = pred.shape
+    if (tuple(src.shape) != (B, h, w) or tuple(extra_bits.shape) != (B,)
+            or pred.dtype != torch.int32 or src.dtype != torch.int32
+            or wts.dtype != torch.float32
+            or extra_bits.dtype != torch.float32):
+        raise ValueError("rd_cost_pred: expects int32 pred, src [B, h, w] "
+                         "and float32 wts, extra_bits [B]")
+    c = quant_consts(w, h, bitdepth, qp, is_intra_slice=False)
+    rd = torch.empty((B,), dtype=torch.float32, device=dev)
+    kernels.launch("rd_cost_pred", dev, pred.data_ptr(), src.data_ptr(),
+                   extra_bits.data_ptr(), B, w, h, tables["mat_w"].data_ptr(),
+                   tables["mat_h"].data_ptr(), wts.data_ptr(), bitdepth,
+                   c["q_bits"], c["scale"], c["add"], c["iscale"],
+                   c["dq_shift"], float(lam), rd.data_ptr())
+    return rd
