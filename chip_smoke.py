@@ -22,10 +22,16 @@ Phases, one line each (or a few), any failure exits non-zero:
      K7's predictions, K8 leaf_qpel (the frame's 16x16, 32x32 and 64x64
      blocks as leaves of 4, 16 and 64 tiles, and the 64x64 leaves at the
      largest 10-bit residual): all outputs equal, tolerance 0;
+     then the kernels of the all-intra tool paths at the same class shapes
+     (frame, random and edge planes, 8 and 10 bits): K12a refs_blocks and
+     K10 mip_preds at every class position, K3 satd67 and K4 rd_cost over
+     the class's 12 or 16 MIP candidates, K11 mts_search (classes up to
+     32x32) on K4's winning prediction and on the largest residual: all
+     outputs equal, tolerance 0;
   5. the all-intra path: Encoder(cfg, device="cuda").feed/flush of a
      10-frame 832x480 all-intra QP22 clip (bench.py's configuration); K1-K4
-     must launch once per size class and frame, K5-K8 never; wall fps and
-     device busy time;
+     must launch once per size class and frame, every other kernel never;
+     wall fps and device busy time;
   6. the low-delay path: bench.py's LD configuration (832x480 QP27, GOP 4
      low-delay, rdoq off) over its 40-frame sequence: host ME, K5 and K1-K4
      per P frame (the intra screen); the launch counts must match the size
@@ -34,12 +40,20 @@ Phases, one line each (or a few), any failure exits non-zero:
      9 frames at 832x480: K1-K4 per frame, K7 per reference, K6 per
      reference and inter class, K8 per frame with inter leaves; wall fps
      and device busy time;
+  7b. the MIP path: the all-intra configuration with mip=True, 3 frames at
+     832x480, every class through dispatch_blocks: per class and frame K1
+     and K2 once, K3 and K4 twice (67 modes, then the MIP candidates), K10
+     and K12a once; the MTS path: the same with mts=1, every class through
+     search_blocks: K2, K3, K4 once per class and frame, K11 once per class
+     up to 32x32, K1 never (the references are built on the host); wall fps
+     and device busy time of both;
   8. the card against the CPU (plain versions): all-intra frame 0, the
-     first three LD frames (I, P, P) and a three-frame clip of the dense
-     path (I, P, B) must give byte-identical access units and recon;
-  9. 192x128 clips encoded on the card (all-intra, LD, dense RA) decode
-     through the port's oracle decoder, with their references, to the
-     encoder's reconstruction;
+     first three LD frames (I, P, P), a three-frame clip of the dense path
+     (I, P, B) and frame 0 of the MIP and MTS paths must give
+     byte-identical access units and recon;
+  9. 192x128 clips encoded on the card (all-intra, LD, dense RA, MIP, MTS)
+     decode through the port's oracle decoder, with their references, to
+     the encoder's reconstruction;
  10. a JSON line with each kernel's numbers, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -47,6 +61,7 @@ It imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -57,6 +72,7 @@ import numpy as np
 W, H, FRAMES, QP = 832, 480, 10, 22
 LD_FRAMES, LD_QP = 40, 27          # bench.py:63, :77
 RA_FRAMES = 9                      # IDR + one random-access GOP of 8
+TOOL_FRAMES = 3                    # the MIP and MTS paths (Python finalize)
 R = 16                             # full-pel search range of the dense path
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 OPS_PER_S = 67e12             # H100 SXM float32 rate outside the tensor cores,
@@ -70,12 +86,16 @@ REPLACES = {
     "rd_cost_pred": "uvg266_tpu/ops/rd_cost.py:24",
     "frame_inter": "uvg266_tpu/ops/me_frame.py:159",
     "leaf_qpel": "uvg266_tpu/ops/me_frame.py:215",
+    "mip_preds": "uvg266_tpu/ops/mip.py:108",
+    "mts_search": "uvg266_tpu/ops/rd_cost.py:230",
+    "refs_blocks": "uvg266_tpu/ops/intra_batch.py:552",
 }
 INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
 # the path whose run gives each kernel's "launches" in the JSON line
 MAIN_PATH = {**dict.fromkeys(INTRA_KERNELS, "all-intra"),
              "pseudo_recon": "low-delay", "rd_cost_pred": "dense RA",
-             "frame_inter": "dense RA", "leaf_qpel": "dense RA"}
+             "frame_inter": "dense RA", "leaf_qpel": "dense RA",
+             "mip_preds": "MIP", "refs_blocks": "MIP", "mts_search": "MTS"}
 
 
 def fail(msg: str) -> None:
@@ -116,6 +136,16 @@ def ld_config(Config, w=W, h=H):
                   signhide_enable=False, dep_quant=False, wpp=False)
 
 
+def mip_config(Config, w=W, h=H):
+    """The all-intra benchmark configuration with MIP on."""
+    return dataclasses.replace(bench_config(Config, w, h), mip=True)
+
+
+def mts_config(Config, w=W, h=H):
+    """The all-intra benchmark configuration with intra MTS on."""
+    return dataclasses.replace(bench_config(Config, w, h), mts=1)
+
+
 def dense_config(Config, w=W, h=H):
     """The all-device dense inter search (--me full), rdoq on (the Config
     default: leaf refinement in K8), random-access GOP 8."""
@@ -149,7 +179,17 @@ def satd_ops(n: int) -> int:
     return 1 + 2 * (n.bit_length() - 1) + 2
 
 
-def work(name, B, w, h, H_, W_, **kw):
+def mts_pair_ops(w: int, h: int, keep_w: int, keep_h: int, dct2_w: bool,
+                 dct2_h: bool) -> int:
+    """Operations of a forward and an inverse 2-D transform of one MTS
+    pair: DCT2 as a partial butterfly, DST7 and DCT8 (no butterfly) as a
+    matrix product over the coefficients kept."""
+    rows = dct_ops(w) if dct2_w else 2 * w * keep_w
+    cols = dct_ops(h) if dct2_h else 2 * h * keep_h
+    return 2 * (h * rows + keep_w * cols)
+
+
+def work(name, B, w, h, H_, W_, M=67, **kw):
     """(bytes, operations) the function must move/do for one call: each
     input read once, each output written once; a multiply-add counts as two
     operations. Operations are those the function needs, not those a
@@ -158,18 +198,37 @@ def work(name, B, w, h, H_, W_, **kw):
     hw = w * h
     if name == "refs_blocks_grid":
         return (H_ * W_ + B * (780 + hw)) * 4, B * 2 * 195 * 4
+    if name == "refs_blocks":
+        # K1's work plus the two position arrays
+        return (H_ * W_ + B * (780 + hw + 2)) * 4, B * 2 * 195 * 4
+    if name == "mip_preds":
+        # the plane, positions and matrix in, n_cand predictions out; per
+        # block the boundary sums, per candidate the reduced prediction (a
+        # multiply-add per matrix entry) and five operations per sample of
+        # each upsampling stage that is not the identity
+        n_modes, rb, rp = kw["geom"]
+        per_cand = (rp * rp * 2 * 2 * rb + (rp * w * 5 if w > rp else 0)
+                    + (hw * 5 if h > rp else 0))
+        return ((H_ * W_ + 2 * B + B * M * hw) * 4 + n_modes * rp * rp * 2 * rb,
+                B * (w + h + M * per_cand))
+    if name == "mts_search":
+        # prediction and source in, 9 B out; five transform pairs
+        # (candidate 0 is DCT2/DCT2, the others pair DST7 and DCT8)
+        ops_ = sum(mts_pair_ops(w, h, kw_, kh_, i == 0, i == 0)
+                   for i, (kw_, kh_) in enumerate(kw["keep"]))
+        return 2 * B * hw * 4 + 5 * (w * w + h * h) + 16 + B * 9, B * ops_
     if name == "predict67":
         tables = 67 * hw * 12 + 67 * 8 + (w + h) * 4
         return B * 780 * 4 + tables + B * 67 * hw * 4, B * 67 * hw * 12
     if name == "satd67":
         n = 8 if (w >= 8 and h >= 8) else 4
-        return (B * 67 * hw * 4 + B * hw * 4 + B * 67 * 4,
-                B * 67 * hw * satd_ops(n))
+        return (B * M * hw * 4 + B * hw * 4 + B * M * 4,
+                B * M * hw * satd_ops(n))
     # a forward and an inverse 2-D transform of a w x h block
     tr_ops = 2 * (h * dct_ops(w) + w * dct_ops(h))
     if name == "rd_cost":
         # satds, the winning prediction and the source in; 12 B out
-        return (B * 67 * 4 + 2 * B * hw * 4 + w * w + h * h + 67 * 4 + 16
+        return (B * M * 4 + 2 * B * hw * 4 + w * w + h * h + M * 4 + 16
                 + B * 12, B * tr_ops)
     if name == "rd_cost_pred":
         # prediction, source, extra bits in; rd out; K4's transforms
@@ -264,11 +323,14 @@ def main() -> int:
                                                     qp_to_lambda)
     from uvg266_tpu_torch.ops import intra_batch as ib
     from uvg266_tpu_torch.ops import me_frame as mf
+    from uvg266_tpu_torch.ops import mip as mp
     from uvg266_tpu_torch.ops import pseudo_recon as pr
     from uvg266_tpu_torch.ops import rd_cost as rc
     from uvg266_tpu_torch.ops.inter import fetch_extended_block
     from uvg266_tpu_torch.ops.me import make_mv_penalty
-    from uvg266_tpu_torch.ops.tables import device_tables, frame_tables
+    from uvg266_tpu_torch.ops.tables import (device_mts_tables, device_tables,
+                                             frame_tables, mip_matrix,
+                                             mip_mode_bits)
     from uvg266_tpu_torch.oracle.decoder import decode_au
 
     dev = torch.device("cuda")
@@ -291,7 +353,8 @@ def main() -> int:
     secs = kernels.build()
     print(f"phase 2 build: {time.perf_counter() - t0:.3f} s wall, per kernel "
           + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()), flush=True)
-    for name in kernels.SIGNATURES:
+    for name in dict.fromkeys(kernels.source_of(n)
+                              for n in kernels.SIGNATURES):
         usage = [ln.strip() for ln in kernels.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"  ptxas {name}: {' | '.join(usage)}", flush=True)
@@ -323,33 +386,44 @@ def main() -> int:
         if d != 0.0:
             fail(f"{name} {what}: kernel and plain version differ by {d}")
 
-    def timed(name, kern, plain, label, n_kern=20, n_plain=3, **kw):
+    def timed(name, kern, plain, label, n_kern=20, n_plain=3, account=True,
+              **kw):
+        # account=False: printed only (K3/K4 at a MIP candidate count; their
+        # rows in the JSON line stay the 67-mode times of the all-intra path)
         k_ms = time_ms(torch, kern, n_kern)
         p_ms = time_ms(torch, plain, n_plain)
         b, o = work(name, **kw)
-        ms[name] += k_ms
-        plain_ms[name] += p_ms
-        bytes_[name] += b
-        ops[name] += o
+        if account:
+            ms[name] += k_ms
+            plain_ms[name] += p_ms
+            bytes_[name] += b
+            ops[name] += o
         bound = max(b / HBM_BYTES_PER_S, o / OPS_PER_S) * 1e3
         print(f"  {name} {label}: {k_ms:.4f} ms kernel, {p_ms:.4f} ms "
               f"plain, bound {bound:.4f} ms ({b} B, {o} ops)", flush=True)
 
     frame_src = torch.from_numpy(frames[0][0]).to(dev)
     pseudo0 = pr.pseudo_recon(frame_src, LD_QP, 8)
+
+    def class_planes(bd):
+        """The planes the per-class kernels are checked on: random, 8x8
+        checkerboard of 0 and the maximum, and at 8 bits the clip's frame."""
+        mx = (1 << bd) - 1
+        planes = {"rand": torch.randint(0, mx + 1, (H, W), generator=gen,
+                                        device=dev, dtype=torch.int32),
+                  "edge": (((torch.arange(H, device=dev)[:, None] // 8
+                             + torch.arange(W, device=dev)[None] // 8) % 2)
+                           * mx).to(torch.int32)}
+        if bd == 8:
+            planes["frame"] = frame_src
+        return planes
+
     for (w, h, g) in classes:
         B = g[4] * g[5]
         for bd in (8, 10):
             mx = (1 << bd) - 1
             tabs = device_tables(w, h, bd, "cuda")
-            planes = {"rand": torch.randint(0, mx + 1, (H, W), generator=gen,
-                                            device=dev, dtype=torch.int32),
-                      "edge": (((torch.arange(H, device=dev)[:, None] // 8
-                                 + torch.arange(W, device=dev)[None] // 8) % 2)
-                               * mx).to(torch.int32)}
-            if bd == 8:
-                planes["frame"] = frame_src
-            for tag, src in planes.items():
+            for tag, src in class_planes(bd).items():
                 what = f"{w}x{h} {bd}-bit {tag}"
                 refs, blocks = ib.refs_blocks_grid(src, w, h, g)
                 pr_, pb = ib.refs_blocks_grid_plain(src, w, h, g)
@@ -540,6 +614,99 @@ def main() -> int:
     print(f"phase 4 inter kernels: {checks - n0} comparisons, all equal",
           flush=True)
 
+    # --- 4b. the kernels of the all-intra tool paths ------------------------
+    n0 = checks
+    for (_key, w, h, positions, g) in entries:
+        B = len(positions)
+        xs = np.array([p[0] for p in positions], dtype=np.int32)
+        ys = np.array([p[1] for p in positions], dtype=np.int32)
+        size_id, n_modes, rb, rp, _uh, _uv = mp.mip_geometry(w, h)
+        n_cand = 2 * n_modes
+        mat = mip_matrix(size_id, "cuda")
+        mbits = mip_mode_bits(n_cand, "cuda")
+        mts = device_mts_tables(w, h, "cuda") if max(w, h) <= 32 else None
+        for bd in (8, 10):
+            mx = (1 << bd) - 1
+            tabs = device_tables(w, h, bd, "cuda")
+            for tag, src in class_planes(bd).items():
+                what = f"{w}x{h} {bd}-bit {tag}"
+                refs, blocks = ib.refs_blocks(src, xs, ys, w, h)
+                pr_, pb = ib.refs_blocks_plain(src, xs, ys, w, h)
+                same("refs_blocks", what + " refs", refs, pr_)
+                same("refs_blocks", what + " blocks", blocks, pb)
+                mpreds = mp.mip_preds(src, xs, ys, w, h, bd, mat)
+                same("mip_preds", what, mpreds,
+                     mp.mip_preds_plain(src, xs, ys, w, h, bd, mat))
+                msatds = ib.satd67(mpreds, blocks)
+                same("satd67", f"{what} M={n_cand}", msatds,
+                     ib.satd67_plain(mpreds, blocks))
+                preds = ib.predict67(refs, tabs)
+                satds = ib.satd67(preds, blocks)
+                for qp in (22, 37):
+                    qps = qp + 6 * (bd - 8)
+                    lam = float(np.float32(qp_to_lambda(qp)))
+                    ft = frame_tables(qp, "cuda")
+                    args = (mpreds, blocks, msatds, qps, lam, ft["wts"],
+                            mbits, tabs, bd)
+                    for o, a, b in zip(("best", "rd", "satd"),
+                                       rc.rd_cost(*args),
+                                       rc.rd_cost_plain(*args)):
+                        same("rd_cost", f"{what} M={n_cand} qp{qp} {o}", a, b)
+                    if mts is None:
+                        continue
+                    best = rc.rd_cost(preds, blocks, satds, qps, lam,
+                                      ft["wts"], ft["mode_bits"], tabs, bd)[0]
+                    pairs = [(preds[torch.arange(B, device=dev), best.long()],
+                              blocks)]
+                    if tag == "edge":
+                        # the largest residual: the SSD of a 32x32 10-bit
+                        # block passes 2^30
+                        pairs.append((torch.zeros_like(blocks),
+                                      torch.full_like(blocks, mx)))
+                    for k, (pp, bb) in enumerate(pairs):
+                        a = (pp, bb, qps, lam, ft["wts"], mts, bd)
+                        for o, x_, y_ in zip(("tr_idx", "cost", "dc_only"),
+                                             rc.mts_search(*a),
+                                             rc.mts_search_plain(*a)):
+                            same("mts_search", f"{what} #{k} qp{qp} {o}",
+                                 x_, y_)
+        # times at the frame's inputs (8 bits, QP22), once per class
+        tabs = device_tables(w, h, 8, "cuda")
+        ft = frame_tables(QP, "cuda")
+        lam = float(np.float32(qp_to_lambda(QP)))
+        shape = dict(B=B, w=w, h=h, H_=H, W_=W)
+        timed("refs_blocks", lambda: ib.refs_blocks(frame_src, xs, ys, w, h),
+              lambda: ib.refs_blocks_plain(frame_src, xs, ys, w, h),
+              f"{w}x{h}", **shape)
+        timed("mip_preds",
+              lambda: mp.mip_preds(frame_src, xs, ys, w, h, 8, mat),
+              lambda: mp.mip_preds_plain(frame_src, xs, ys, w, h, 8, mat),
+              f"{w}x{h} {n_cand} candidates", M=n_cand,
+              geom=(n_modes, rb, rp), **shape)
+        refs, blocks = ib.refs_blocks(frame_src, xs, ys, w, h)
+        mpreds = mp.mip_preds(frame_src, xs, ys, w, h, 8, mat)
+        msatds = ib.satd67(mpreds, blocks)
+        m_args = (mpreds, blocks, msatds, QP, lam, ft["wts"], mbits, tabs, 8)
+        timed("satd67", lambda: ib.satd67(mpreds, blocks),
+              lambda: ib.satd67_plain(mpreds, blocks), f"{w}x{h} M={n_cand}",
+              account=False, M=n_cand, **shape)
+        timed("rd_cost", lambda: rc.rd_cost(*m_args),
+              lambda: rc.rd_cost_plain(*m_args), f"{w}x{h} M={n_cand}",
+              account=False, M=n_cand, **shape)
+        if mts is not None:
+            preds = ib.predict67(refs, tabs)
+            best = rc.rd_cost(preds, blocks, ib.satd67(preds, blocks), QP, lam,
+                              ft["wts"], ft["mode_bits"], tabs, 8)[0]
+            t_args = (preds[torch.arange(B, device=dev), best.long()], blocks,
+                      QP, lam, ft["wts"], mts, 8)
+            timed("mts_search", lambda: rc.mts_search(*t_args),
+                  lambda: rc.mts_search_plain(*t_args), f"{w}x{h}",
+                  keep=mts["mts_keep"], **shape)
+            del preds, best, t_args
+        del refs, blocks, mpreds, msatds, m_args
+    print(f"phase 4b tool kernels: {checks - n0} comparisons, all equal",
+          flush=True)
+
     counts = {}
 
     def expect(path, launches, want_counts):
@@ -552,6 +719,12 @@ def main() -> int:
     def n_classes(enc):
         return len(enc.slice_enc._fused_entries_c)
 
+    def native(path, enc):
+        # a failed g++ build of native/ would fall back to the Python
+        # entropy engine and only show as a slow run
+        if not enc.slice_enc.native_entropy:
+            fail(f"{path} path: the native entropy library did not build")
+
     # --- 5. the all-intra path ----------------------------------------------
     clip = [FramePlanes(*f) for f in frames]
     encode(Encoder(cfg, device=dev), FramePlanes, clip[:2])    # warm-up
@@ -563,6 +736,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    native("all-intra", enc)
     if len(outs) != FRAMES:
         fail(f"all-intra path returned {len(outs)} of {FRAMES} frames")
     expect("all-intra", launches,
@@ -589,6 +763,7 @@ def main() -> int:
     torch.cuda.synchronize()
     lwall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    native("low-delay", lenc)
     if len(louts) != LD_FRAMES:
         fail(f"low-delay path returned {len(louts)} of {LD_FRAMES} frames")
     n_p = sum(1 for o in louts if o[2].slicetype != SliceType.I)
@@ -628,6 +803,7 @@ def main() -> int:
         launches = dict(kernels.LAUNCHES)
     finally:
         SliceEncoder._refine_inter_leaves = refine
+    native("dense RA", denc)
     if len(douts) != RA_FRAMES:
         fail(f"dense path returned {len(douts)} of {RA_FRAMES} frames")
     n_uniq = 0
@@ -652,6 +828,49 @@ def main() -> int:
     print(busy_share(torch, lambda: encode(Encoder(dcfg, device=dev),
                                            FramePlanes, rclip)), flush=True)
 
+    # --- 7b. the MIP and MTS paths ------------------------------------------
+    mcfg, tcfg = mip_config(Config), mts_config(Config)
+    tclip = clip[:TOOL_FRAMES]
+    ps = PartitionSearch(ctrl, cfg, qp=QP)
+    # (w, h) of every class dispatch_blocks / search_blocks is called for
+    tool_classes = list(ps._shapes()) + [
+        ((s_ >> 1), s_) if vert else (s_, (s_ >> 1))
+        for s_ in ps.tt_parents for vert in (False, True)
+        if ps._tt_mid_positions(s_, vert)]
+    n_cls = len(tool_classes)
+    n_mts = sum(1 for (w, h) in tool_classes if max(w, h) <= 32)
+    tool_outs = {}
+    for path, pcfg, per_frame in (
+            ("MIP", mcfg, {"refs_blocks_grid": n_cls, "predict67": n_cls,
+                           "satd67": 2 * n_cls, "rd_cost": 2 * n_cls,
+                           "mip_preds": n_cls, "refs_blocks": n_cls}),
+            ("MTS", tcfg, {"predict67": n_cls, "satd67": n_cls,
+                           "rd_cost": n_cls, "mts_search": n_mts})):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        penc = Encoder(pcfg, device=dev)
+        pouts = encode(penc, FramePlanes, tclip)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        native(path, penc)
+        if len(pouts) != TOOL_FRAMES:
+            fail(f"{path} path returned {len(pouts)} of {TOOL_FRAMES} frames")
+        expect(path, launches,
+               {k: v * TOOL_FRAMES for k, v in per_frame.items()})
+        for au, rec, _fs, _refs, _src in pouts:
+            if not au or rec.y.shape != (H, W) or not np.isfinite(rec.y).all():
+                fail(f"{path} path produced an empty AU or a malformed recon")
+        tool_outs[path] = pouts
+        print(f"phase 7b {path} path: {TOOL_FRAMES} frames {W}x{H} QP{QP} "
+              f"all-intra, {n_cls} classes ({n_mts} up to 32x32), in "
+              f"{pwall:.3f} s = {TOOL_FRAMES / pwall:.3f} fps wall, "
+              f"{sum(len(o[0]) for o in pouts)} bytes, launches "
+              + json.dumps(launches), flush=True)
+        print(busy_share(torch, lambda: encode(Encoder(pcfg, device=dev),
+                                               FramePlanes, tclip)),
+              flush=True)
+
     # --- 8. the card against the CPU ----------------------------------------
     def card_vs_cpu(path, config, got, n, enc_clip):
         ref = encode(Encoder(config, device="cpu"), FramePlanes, enc_clip)
@@ -673,11 +892,14 @@ def main() -> int:
     if {o[2].slicetype for o in dshort} != {SliceType.I, SliceType.P,
                                              SliceType.B}:
         fail("dense RA card-vs-CPU clip lacks an I, P or B slice")
+    msg.append(card_vs_cpu("MIP", mcfg, tool_outs["MIP"], 1, clip[:1]))
+    msg.append(card_vs_cpu("MTS", tcfg, tool_outs["MTS"], 1, clip[:1]))
     print("phase 8 card vs CPU byte-identical: " + "; ".join(msg), flush=True)
 
     # --- 9. small clips through the oracle decoder --------------------------
     for label, mk in (("all-intra", bench_config), ("low-delay", ld_config),
-                      ("dense RA", dense_config)):
+                      ("dense RA", dense_config), ("MIP", mip_config),
+                      ("MTS", mts_config)):
         scfg = mk(Config, 192, 128)
         senc = Encoder(scfg, device=dev)
         sout = encode(senc, FramePlanes, synth_clip(192, 128, 5))
@@ -710,7 +932,7 @@ def main() -> int:
         t_ops = ops[name] / OPS_PER_S
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"uvg266_tpu_torch/csrc/{name}.cu",
+            "source": f"uvg266_tpu_torch/csrc/{kernels.source_of(name)}.cu",
             "replaces": REPLACES[name],
             "launches": counts[MAIN_PATH[name]][name],
             "max_abs_err": err[name],

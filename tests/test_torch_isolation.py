@@ -18,6 +18,7 @@ import uvg266_tpu_torch
 from uvg266_tpu_torch import kernels
 from uvg266_tpu_torch.ops import intra_batch as ib
 from uvg266_tpu_torch.ops import me_frame as mf
+from uvg266_tpu_torch.ops import mip
 from uvg266_tpu_torch.ops import pseudo_recon as pr
 from uvg266_tpu_torch.ops import rd_cost as rd
 from uvg266_tpu_torch.ops import tables as tb
@@ -91,9 +92,9 @@ def test_no_import_of_jax_or_the_reference(path):
 
 
 # relative imports of modules the port does not have yet, each reached only
-# under a configuration check_slice_config refuses (cfg.mip: ROADMAP.md,
-# 'Modules to port', item 7)
-_GATED_MISSING = {"uvg266_tpu_torch.ops.mip"}
+# under a configuration check_slice_config refuses: none since ops/mip.py
+# was ported
+_GATED_MISSING: set = set()
 
 
 def _relative_imports(path):
@@ -149,21 +150,27 @@ def test_relative_imports_resolve(path):
     """Every relative import, inside functions too, names a module of the
     port: an import only a rare path reaches fails there and nowhere else
     (the port once lacked ops/me.py, which the default rdoq finalize
-    imports). ops.mip is the one named, gated exception."""
+    imports, and ops/mip.py). The list of gated exceptions is empty."""
     missing = [(line, mod) for line, mod in _relative_imports(path)
                if not _resolves(mod) and mod not in _GATED_MISSING]
     assert not missing, missing
 
 
 def test_gated_missing_modules_are_still_missing_and_gated():
-    """The exception list holds only modules that are really absent, and
-    the configurations that reach them are refused."""
+    """The exception list holds only modules that are really absent (none
+    now: ops.mip resolves), and the configurations that would reach
+    unported code are refused: MIP in inter slices, while all-intra MIP is
+    accepted."""
     from uvg266_tpu_torch.cfg import Config
     from uvg266_tpu_torch.control.encoder import check_slice_config
+    assert not _GATED_MISSING
     for mod in _GATED_MISSING:
         assert not _resolves(mod), f"{mod} exists: drop it from the list"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        check_slice_config(Config(width=64, height=64, mip=True))
+    assert _resolves("uvg266_tpu_torch.ops.mip")
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        check_slice_config(Config(width=64, height=64, gop_len=4, mip=True))
+    check_slice_config(Config(width=64, height=64, gop_len=0, intra_period=1,
+                              mip=True))
 
 
 def test_wrappers_raise_instead_of_falling_back():
@@ -200,6 +207,24 @@ def test_wrappers_raise_instead_of_falling_back():
                              torch.empty((4, 8, 8), **meta),
                              torch.empty((4,), **meta), 2,
                              torch.empty((49,), device="meta")),
+        lambda: ib.refs_blocks(torch.empty((16, 16), **meta), [0, 8], [0, 8],
+                               8, 8),
+        lambda: mip.mip_preds(torch.empty((16, 16), **meta), [0, 8], [0, 8],
+                              8, 8, 8, torch.empty((8, 16, 8), device="meta",
+                                                   dtype=torch.uint8)),
+        lambda: rd.mts_search(torch.empty((4, 8, 8), **meta),
+                              torch.empty((4, 8, 8), **meta), 22, 57.9,
+                              ft["wts"],
+                              tb.tables_to_torch(tb.mts_class_tables(8, 8),
+                                                 "meta"), 8),
+        # K3 and K4 at a MIP candidate count
+        lambda: ib.satd67(torch.empty((4, 16, 8, 8), **meta),
+                          torch.empty((4, 8, 8), **meta)),
+        lambda: rd.rd_cost(torch.empty((4, 16, 8, 8), **meta),
+                           torch.empty((4, 8, 8), **meta),
+                           torch.empty((4, 16), **meta), 22, 57.9,
+                           ft["wts"], torch.empty((16,), device="meta"),
+                           tabs, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no kernel for device"):

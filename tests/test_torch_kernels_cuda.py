@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K8 against their plain PyTorch versions on the card.
+"""The CUDA kernels K1-K8 and K10, K11, K12a against their plain PyTorch
+versions on the card.
 
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA card: they
 carry the ``cuda`` marker and skip elsewhere. On the card:
@@ -126,6 +127,67 @@ def test_inter_kernels_equal_plain(card, bd):
             a = (pred, blk, 27, 68.5, ft["wts"], extra, tabs, 8)
             assert torch.equal(rd.rd_cost_pred(*a), rd.rd_cost_pred_plain(*a))
         n_expect.update(frame_inter=1, rd_cost_pred=len(classes))
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == n_expect
+
+
+@pytest.mark.parametrize("w,h,bd", [(4, 4, 8), (8, 8, 10), (16, 16, 8),
+                                    (32, 32, 10), (8, 32, 8), (64, 64, 8),
+                                    (16, 4, 10), (32, 16, 8)])
+def test_tool_kernels_equal_plain(card, w, h, bd):
+    """K10 mip_preds and K12a refs_blocks at positions on the plane's
+    edges and off any grid, K3/K4 at the class's MIP candidate count, and
+    K11 mts_search (w, h <= 32) on the winning MIP prediction and on the
+    largest residual."""
+    from uvg266_tpu_torch.ops import mip
+    rng = np.random.default_rng(w * 100 + h + bd)
+    mx = (1 << bd) - 1
+    H, W = 3 * h + 6, 4 * w + 8
+    src = rng.integers(0, mx + 1, (H, W)).astype(np.int32)
+    xs = np.array([0, W - w, 0, W - w, 3, w + 1, 2 * w + 5], dtype=np.int32)
+    ys = np.array([0, 0, H - h, H - h, 1, h + 2, 2 * h + 3], dtype=np.int32)
+    s_cpu = torch.from_numpy(src)
+    s = s_cpu.to(card)
+    before = dict(kernels.LAUNCHES)
+    refs, blocks = ib.refs_blocks(s, xs, ys, w, h)
+    pr, pb = ib.refs_blocks_plain(s, xs, ys, w, h)
+    assert torch.equal(refs, pr) and torch.equal(blocks, pb)
+    mat = tb.mip_matrix(mip.mip_size_id(w, h), "cuda")
+    preds = mip.mip_preds(s, xs, ys, w, h, bd, mat)
+    assert preds.shape == (7, 2 * mip.mip_mode_count(w, h), h, w)
+    assert torch.equal(preds, mip.mip_preds_plain(s, xs, ys, w, h, bd, mat))
+    satds = ib.satd67(preds, blocks)
+    assert torch.equal(satds, ib.satd67_plain(preds, blocks))
+    tabs = tb.device_tables(w, h, bd, "cuda")
+    bits = tb.mip_mode_bits(preds.shape[1], "cuda")
+    n_expect = {"refs_blocks": 1, "mip_preds": 1, "satd67": 1, "rd_cost": 2}
+    for qp in (22, 37):
+        ft = tb.frame_tables(qp, "cuda")
+        args = (preds, blocks, satds, qp + 6 * (bd - 8), 57.9, ft["wts"],
+                bits, tabs, bd)
+        got = rd.rd_cost(*args)
+        for a, b in zip(got, rd.rd_cost_plain(*args)):
+            assert torch.equal(a, b)
+    if w <= 32 and h <= 32:
+        mts = tb.device_mts_tables(w, h, "cuda")
+        best_pred = preds[torch.arange(7, device=card), got[0].long()]
+        smooth = (blocks + torch.arange(w, device=card)[None, None, :] * 3
+                  - 20).clamp(0, mx).to(torch.int32)
+        cases = [(best_pred, blocks), (smooth, blocks),
+                 (torch.zeros_like(blocks), torch.full_like(blocks, mx))]
+        for pp, bb in cases:
+            for qp in (22, 37):
+                ft = tb.frame_tables(qp, "cuda")
+                a = (pp.contiguous(), bb, qp + 6 * (bd - 8), 57.9, ft["wts"],
+                     mts, bd)
+                for x_, y_ in zip(rd.mts_search(*a), rd.mts_search_plain(*a)):
+                    assert x_.dtype == y_.dtype and torch.equal(x_, y_)
+        n_expect["mts_search"] = 6
+    with pytest.raises(ValueError, match="outside"):
+        ib.refs_blocks(s, np.array([W - w + 1]), np.array([0]), w, h)
+    with pytest.raises(ValueError, match="outside"):
+        mip.mip_preds(s, np.array([0]), np.array([-1]), w, h, bd, mat)
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before
             if kernels.LAUNCHES[k] != before[k]} == n_expect

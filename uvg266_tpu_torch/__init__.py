@@ -4,8 +4,9 @@ Same ``Config``, ``Encoder.feed/flush`` and ``SliceEncoder`` API and the
 same bitstreams as the JAX package ``uvg266_tpu``, which stays the
 reference. The host code (numpy, the g++-built C++ in ``native/``) is a
 copy of the reference's; the device search runs hand-written CUDA kernels
-(``csrc/``, built by ``kernels``). Ported: the all-intra frame search and
-the low-delay / random-access P and B slices at 8 bits (host ME with the
+(``csrc/``, built by ``kernels``). Ported: the all-intra frame search, its
+tool paths (MIP through the per-class dispatch, intra MTS) and the
+low-delay / random-access P and B slices at 8 bits (host ME with the
 device intra screen, or the all-device dense search); the paths still to
 port raise ``NotImplementedError`` naming their ROADMAP.md item.
 

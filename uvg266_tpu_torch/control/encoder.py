@@ -12,8 +12,11 @@ unless the caller passes device="cpu" (then their plain PyTorch versions):
 K1-K4 (ops.intra_batch, ops.rd_cost) for the intra candidates of every
 frame, K5 (ops.pseudo_recon) for the P/B intra screen of the host-ME path,
 K6-K8 (ops.rd_cost, ops.me_frame) for the dense inter search and the
-leaf-level quarter-pel refinement. Configurations and paths not ported yet
-raise NotImplementedError naming their ROADMAP.md item.
+leaf-level quarter-pel refinement, and for the all-intra tool paths the
+per-class dispatch with K10 (ops.mip) and K12a (ops.intra_batch) for MIP
+and search_blocks with K11 (ops.rd_cost) for intra MTS. Configurations and
+paths not ported yet raise NotImplementedError naming their ROADMAP.md
+item.
 
 Control flow parity with the reference frame pipeline:
 - uvg_encode_one_frame / encoder_state_encode_leaf
@@ -1313,23 +1316,24 @@ def _not_ported(what: str, item: str):
         f"'Modules to port', {item}")
 
 
+_ITEM_7B = "item 7b (search_combined and the rough search, K9, K12b, K12c)"
+
+
 def check_slice_config(cfg) -> None:
-    """Raise for a configuration outside the ported slices: all-intra, and
-    low-delay / random-access P and B slices at 8 bits."""
+    """Raise for a configuration outside the ported slices: all-intra
+    (with MIP and intra MTS), and low-delay / random-access P and B slices
+    at 8 bits without MTS or MIP."""
     inter = not (cfg.gop_len == 0 and cfg.intra_period <= 1)
+    # every device inter path needs 8 bits and neither MTS nor MIP; the
+    # reference then runs the per-class search_combined
     if inter and cfg.input_bitdepth != 8:
-        # both device inter paths need 8 bits; the reference then runs the
-        # per-class search_combined
-        _not_ported("inter slices at a bit depth other than 8",
-                    "item 7 (per-class and tool paths, K9-K12)")
-    if cfg.mts in (1, 3):
-        _not_ported("intra MTS (mts in (1, 3))",
-                    "item 7 (per-class and tool paths, K9-K12)")
-    if cfg.mip:
-        _not_ported("MIP", "item 7 (per-class and tool paths, K9-K12)")
+        _not_ported("inter slices at a bit depth other than 8", _ITEM_7B)
+    if inter and cfg.mts in (1, 3):
+        _not_ported("intra MTS (mts in (1, 3)) in inter slices", _ITEM_7B)
+    if inter and cfg.mip:
+        _not_ported("MIP in inter slices", _ITEM_7B)
     if getattr(cfg, "intra_rough", False):
-        _not_ported("the rough intra search",
-                    "item 7 (per-class and tool paths, K9-K12)")
+        _not_ported("the rough intra search", _ITEM_7B)
 
 
 def _fetch_async(t: torch.Tensor):
@@ -1351,7 +1355,26 @@ def _fetch_async(t: torch.Tensor):
 
 
 def _fetch_all(resolvers):
-    _not_ported("_fetch_all", "item 7 (per-class and tool paths, K9-K12)")
+    """Fetch every resolver's device tensors in ONE copy to the host: all
+    result vectors are concatenated into a single flat float32 tensor on
+    the device, copied once (_fetch_async), and the pieces sliced back
+    out, one tuple of float32 arrays per resolver. Resolvers without
+    device handles make it return [None, ...] (each then fetches its
+    own)."""
+    devs = [getattr(r, "dev", None) for r in resolvers]
+    if not devs or any(d is None for d in devs):
+        return [None] * len(resolvers)
+    vals = _fetch_async(torch.cat(
+        [a.to(torch.float32).reshape(-1) for d in devs for a in d]))()
+    out = []
+    off = 0
+    for d in devs:
+        pre = []
+        for a in d:
+            pre.append(vals[off:off + a.numel()])
+            off += a.numel()
+        out.append(tuple(pre))
+    return out
 
 # rough per-mode signaling bits for mode preselection (MPM-hit modes are
 # cheaper in reality; refined when CABAC-estimate costing lands)
@@ -1359,12 +1382,51 @@ _MODE_BITS = MODE_BITS
 
 
 def _get_search_fns(w: int, h: int, bitdepth: int = 8):
-    _not_ported("_get_search_fns", "item 7 (per-class and tool paths, K9-K12)")
+    """(predict_all_modes, rd_cost) for a block shape: predict(refs
+    [B, 4*REF_LEN] int32 tensor) -> preds [B, 67, h, w] (K2) and
+    rd(preds, blocks, qps, lam, wts, mode_bits) -> (best, rd_cost,
+    satd_best) (K3 then K4), on the tensors' device."""
+    from ..ops.intra_batch import predict67, satd67
+    from ..ops.rd_cost import rd_cost
+    from ..ops.tables import device_tables
+
+    def predict(refs):
+        return predict67(refs, device_tables(w, h, bitdepth,
+                                             str(refs.device)))
+
+    def rd(preds, blocks, qps, lam, wts, mode_bits):
+        tabs = device_tables(w, h, bitdepth, str(preds.device))
+        return rd_cost(preds, blocks, satd67(preds, blocks), qps, lam, wts,
+                       mode_bits, tabs, bitdepth)
+
+    return predict, rd
 
 
 def _get_intra_combo_fn(w: int, h: int, bitdepth: int = 8,
                         rough: bool = False, grid=None):
-    _not_ported("_get_intra_combo_fn", "item 7 (per-class and tool paths, K9-K12)")
+    """One size class's reference construction, 67-mode prediction and RD
+    costing, launched back to back on the device with no host sync.
+
+    grid: static (x0, y0, sx, sy, gx, gy) position grid -> fn(src, qps,
+    lam, wts, mode_bits) running K1 -> K2 -> K3 -> K4 with the positions
+    baked in; without a grid fn(src, xs, ys, qps, lam, wts, mode_bits)
+    takes the block origins as host arrays and builds the references with
+    K12a (refs_blocks). Both return (best, rd_cost, satd_best) tensors on
+    src's device. rough=True (the two-stage rough+refine search) is not
+    ported."""
+    if rough:
+        _not_ported("the rough intra search", _ITEM_7B)
+    from ..ops.intra_batch import refs_blocks, refs_blocks_grid
+    predict, rd = _get_search_fns(w, h, bitdepth)
+    if grid is not None:
+        def combo(src, qps, lam, wts, mode_bits):
+            refs, blocks = refs_blocks_grid(src, w, h, grid)
+            return rd(predict(refs), blocks, qps, lam, wts, mode_bits)
+    else:
+        def combo(src, xs, ys, qps, lam, wts, mode_bits):
+            refs, blocks = refs_blocks(src, xs, ys, w, h)
+            return rd(predict(refs), blocks, qps, lam, wts, mode_bits)
+    return combo
 
 
 class _GridDescs:
@@ -1640,7 +1702,26 @@ def _get_pframe_intra_combo_fn(classes, H: int, W: int, bitdepth: int = 8):
 
 
 def _get_mip_combo_fn(w: int, h: int, bitdepth: int = 8):
-    _not_ported("_get_mip_combo_fn", "item 7 (per-class and tool paths, K9-K12)")
+    """MIP candidate prediction + RD cost of one size class on the device:
+    K10 mip_preds, the source blocks from K12a, then K3 and K4 over the
+    n_cand = 2 * mip_mode_count(w, h) candidates. Returns (fn(src, xs, ys,
+    qps, lam, wts, mode_bits [n_cand]) -> (best, rd_cost, satd_best),
+    n_cand)."""
+    from ..ops.intra_batch import refs_blocks, satd67
+    from ..ops.mip import mip_mode_count, mip_preds, mip_size_id
+    from ..ops.rd_cost import rd_cost
+    from ..ops.tables import device_tables, mip_matrix
+
+    def combo(src, xs, ys, qps, lam, wts, mode_bits):
+        dev = str(src.device)
+        preds = mip_preds(src, xs, ys, w, h, bitdepth,
+                          mip_matrix(mip_size_id(w, h), dev))
+        _refs, blocks = refs_blocks(src, xs, ys, w, h)
+        return rd_cost(preds, blocks, satd67(preds, blocks), qps, lam, wts,
+                       mode_bits, device_tables(w, h, bitdepth, dev),
+                       bitdepth)
+
+    return combo, 2 * mip_mode_count(w, h)
 
 
 class SliceEncoder:
@@ -1729,22 +1810,139 @@ class SliceEncoder:
 
     def dispatch_blocks(self, src_y: np.ndarray, w: int, h: int,
                         positions: list):
-        _not_ported("dispatch_blocks", "item 7 (per-class and tool paths, K9-K12)")
+        """Dispatch the batched intra search for one size class without
+        blocking; returns resolve() -> (descs, costs). The launches of
+        several size classes (and of the next frame) queue back to back on
+        the device while the host prepares or finalizes."""
+        ctrl = self.ctrl
+        from ..ops.intra_batch import grid_of_positions
+        from ..ops.tables import mip_mode_bits
+        from .partition import qp_to_lambda
+        rough = bool(getattr(self.cfg, "intra_rough", False))
+        grid = grid_of_positions(positions, w, h) if not rough else None
+        combo = _get_intra_combo_fn(w, h, ctrl.bitdepth, rough=rough,
+                                    grid=grid)
+        B = len(positions)
+        # ship the source plane to the device once per frame; the cache
+        # holds the host array itself so its identity cannot be recycled
+        cache = getattr(self, "_src_dev", None)
+        if cache is None or cache[0] is not src_y:
+            self._src_dev = (src_y, self._to_device(src_y, np.int32))
+        src_dev = self._src_dev[1]
+        qp = self.frame_qp
+        qps = ctrl.luma_qp_scaled(qp)
+        lam = float(np.float32(qp_to_lambda(qp)))
+        tabs = frame_tables(qp, str(self.device))
+        xs = np.fromiter((p[0] for p in positions), dtype=np.int32, count=B)
+        ys = np.fromiter((p[1] for p in positions), dtype=np.int32, count=B)
+        if grid is not None:
+            best_d, rd_d, _satd_d = combo(src_dev, qps, lam, tabs["wts"],
+                                          tabs["mode_bits"])
+        else:
+            best_d, rd_d, _satd_d = combo(src_dev, xs, ys, qps, lam,
+                                          tabs["wts"], tabs["mode_bits"])
+        mip_out = None
+        if self.cfg.mip:
+            from ..ops.mip import mip_mode_count
+            mip_combo, n_cand = _get_mip_combo_fn(w, h, ctrl.bitdepth)
+            mip_out = mip_combo(src_dev, xs, ys, qps, lam, tabs["wts"],
+                                mip_mode_bits(n_cand, str(self.device)))
+            n_modes = mip_mode_count(w, h)
+
+        def resolve(pre=None):
+            if pre is None:
+                pre = _fetch_all([resolve])[0]
+            best = pre[0]
+            rd_costs = np.array(pre[1])
+            mvals = pre[2:] if mip_out is not None else None
+            descs = [{"type": "intra", "mode": int(best[k]), "tr_idx": 0}
+                     for k in range(B)]
+            if mvals is not None:
+                mbest, mcost = mvals[0], mvals[1]
+                for k in range(B):
+                    if mcost[k] < rd_costs[k]:
+                        rd_costs[k] = mcost[k]
+                        c = int(mbest[k])
+                        descs[k] = {"type": "intra",
+                                    "mode": c % n_modes,
+                                    "mip": True,
+                                    "mip_t": c >= n_modes,
+                                    "tr_idx": 0}
+            return descs, rd_costs
+
+        # device handles exposed for single-copy batching: the frame
+        # dispatcher concatenates every size class's results into ONE
+        # device tensor (_fetch_all)
+        resolve.dev = [best_d, rd_d] + ([mip_out[0], mip_out[1]]
+                                        if mip_out is not None else [])
+        return resolve
 
     def search_blocks(self, src_y: np.ndarray, w: int, h: int,
                       positions: list,
                       ref_plane: np.ndarray | None = None
                       ) -> tuple[np.ndarray, np.ndarray]:
-        _not_ported("search_blocks", "item 7 (per-class and tool paths, K9-K12)")
+        """Batched best-mode search for aligned w x h blocks at `positions`
+        (raster order). Returns (descs, rd_costs).
+
+        Open-loop: references from the source plane (or `ref_plane` when
+        given — e.g. the QP-matched pseudo-recon, so intra mode costs in
+        inter slices aren't estimated against unrealistically clean
+        neighbors), built on the host (build_refs_grid); K2 -> K3 -> K4 on
+        the device, then with MTS on K11 over the five transform pairs for
+        the winning prediction, gathered on the device.
+        """
+        ctrl = self.ctrl
+        from ..ops.intra_batch import build_refs_grid
+        from .partition import qp_to_lambda
+        predict, rd_fn = _get_search_fns(w, h, ctrl.bitdepth)
+        B = len(positions)
+        blocks = np.empty((B, h, w), dtype=np.int32)
+        for k, (x, y) in enumerate(positions):
+            blocks[k] = src_y[y:y + h, x:x + w]
+        r = build_refs_grid(ref_plane if ref_plane is not None else src_y,
+                            positions, w, h)
+        qp = self.frame_qp
+        qps = ctrl.luma_qp_scaled(qp)
+        lam = float(np.float32(qp_to_lambda(qp)))
+        tabs = frame_tables(qp, str(self.device))
+        blocks_d = self._to_device(blocks)
+        preds = predict(self._to_device(r))
+        best_d, rd_d, _satd = rd_fn(preds, blocks_d, qps, lam, tabs["wts"],
+                                    tabs["mode_bits"])
+        outs = [best_d, rd_d]
+        # MTS only at TU sizes <= 32 (sps_max_mts_size); 64x64 CUs are
+        # implicit-split DCT2 TUs
+        if self.cfg.mts in (1, 3) and w <= TR_MAX_WIDTH \
+                and h <= TR_MAX_WIDTH:
+            from ..ops.rd_cost import mts_search
+            from ..ops.tables import device_mts_tables
+            preds_best = preds[torch.arange(B, device=preds.device),
+                               best_d.long()]
+            tr_d, mts_cost_d, _dc = mts_search(
+                preds_best, blocks_d, qps, lam, tabs["wts"],
+                device_mts_tables(w, h, str(self.device)), ctrl.bitdepth)
+            outs += [tr_d, mts_cost_d]
+        vals = _fetch_async(torch.cat(
+            [a.to(torch.float32) for a in outs]))().reshape(len(outs), B)
+        best = vals[0].astype(np.int32)
+        rd_costs = vals[1]
+        tr_idxs = np.zeros(B, dtype=np.int32)
+        if len(outs) == 4:
+            tr_idxs = vals[2].astype(np.int32)
+            rd_costs = np.minimum(rd_costs, vals[3])
+        descs = [{"type": "intra", "mode": int(best[k]),
+                  "tr_idx": int(tr_idxs[k])}
+                 for k in range(B)]
+        return descs, rd_costs
 
     def search_inter_blocks(self, src_y: np.ndarray, ref_y: np.ndarray,
                             w: int, h: int, positions: list,
                             search_range: int = 16):
-        _not_ported("search_inter_blocks", "item 7 (per-class and tool paths, K9-K12)")
+        _not_ported("search_inter_blocks", _ITEM_7B)
 
     def search_combined(self, src_y, rl, w, h, positions,
                         is_b: bool = False):
-        _not_ported("search_combined", "item 7 (per-class and tool paths, K9-K12)")
+        _not_ported("search_combined", _ITEM_7B)
 
     def _dispatch_inter_frame(self, ps, src_y: np.ndarray, rl, fs,
                               pretoken=None):

@@ -40,23 +40,28 @@ inline int log2i(int v) {
   return l;
 }
 
-// --- the RD tail of K4 (rd_cost.cu) and K6 (rd_cost_pred.cu) ---------------
-// One block's DCT2 -> int16 -> DCT2 -> int16 -> quant -> dequant -> inverse
-// -> reconstruction -> SSD, in the reference's int32 arithmetic
-// (ops/rd_cost.py make_rd_cost_fn / make_rd_cost_pred_fn):
+// --- the RD tail of K4 (rd_cost.cu), K6 (rd_cost_pred.cu) and K11
+// (mts_search.cu) -----------------------------------------------------------
+// One block's transform -> int16 -> transform -> int16 -> quant -> dequant
+// -> inverse -> reconstruction -> SSD, in the reference's int32 arithmetic
+// (ops/rd_cost.py make_rd_cost_fn / make_rd_cost_pred_fn /
+// make_mts_search_fn). Mw is the horizontal and Mh the vertical matrix
+// (rows = frequencies): DCT2 for K4 and K6, any MTS pair for K11, which
+// also keeps only the coefficients below (keep_h, keep_w):
 //   t     = int16((resid @ Mw^T + (1 << (s1-1))) >> s1)
-//   coef  = int16((Mh @ t + (1 << (s2-1))) >> s2)
+//   coef  = int16((Mh @ t + (1 << (s2-1))) >> s2) * mask
 //   level = clip((|coef| * scale + add) >> q_bits, 0, 32767)
 //   dq    = clip16((sign(coef) * level * iscale + (1 << (dq_shift-1))) >> dq_shift)
 //   u     = clip16((Mh^T @ dq + (1 << (si1-1))) >> si1)
 //   r     = clip16((u @ Mw + (1 << (si2-1))) >> si2)
 //   ssd   = sum (src - clip(pred + r, 0, max))^2         (int32, wrapping)
 // and the per-bucket counts of min(level, 3), from which the caller takes
-// the bits estimate ((c0*w0 + c1*w1) + c2*w2) + c3*w3 (order-free).
+// the bits estimate ((c0*w0 + c1*w1) + c2*w2) + c3*w3 (order-free) and the
+// count of nonzero levels (w*h - c0); the DC level on request.
 
 struct RdTail {
   int w, h, log2_w, s1, s2, si1, si2, q_bits, scale, add, iscale, dq_shift,
-      max_pix;
+      max_pix, keep_w, keep_h;
 };
 
 inline RdTail rd_tail_params(int w, int h, int bitdepth, int q_bits, int scale,
@@ -64,7 +69,7 @@ inline RdTail rd_tail_params(int w, int h, int bitdepth, int q_bits, int scale,
   const int lw = log2i(w), lh = log2i(h);
   // transforms.py fwd_shifts / inv_shifts
   return RdTail{w, h, lw, lw - 1 + bitdepth - 8, lh - 1 + 7, 7, 20 - bitdepth,
-                q_bits, scale, add, iscale, dq_shift, (1 << bitdepth) - 1};
+                q_bits, scale, add, iscale, dq_shift, (1 << bitdepth) - 1, w, h};
 }
 
 // shared memory of rd_tail_block beyond its static part: two int planes
@@ -74,13 +79,16 @@ inline size_t rd_tail_smem(int w, int h) {
 }
 
 // Run by all threads of the block. smem: the dynamic shared memory sized
-// by rd_tail_smem; cnt[4] and *ssd_s are shared and must be zero, and
-// visible, on entry. On return (after a __syncthreads()) they hold the
-// block's bucket counts and SSD.
+// by rd_tail_smem; cnt[4] and *ssd_s are shared and must be zero on entry
+// (written by one thread before the call is enough: a barrier precedes
+// their first use). On return (after a __syncthreads()) they hold the
+// block's bucket counts and SSD, and *dc_level (shared; may be null) the
+// level of the DC coefficient.
 __device__ __forceinline__ void rd_tail_block(
     const int* __restrict__ pred, const int* __restrict__ sb,
     const int8_t* __restrict__ mat_w, const int8_t* __restrict__ mat_h,
-    const RdTail& p, int* smem, int* cnt, unsigned* ssd_s) {
+    const RdTail& p, int* smem, int* cnt, unsigned* ssd_s,
+    int* dc_level = nullptr) {
   const int w = p.w, h = p.h, hw = w * h;
   int* A = smem;                                             // [h, w]
   int* Bf = smem + hw;                                       // [h, w]
@@ -105,7 +113,8 @@ __device__ __forceinline__ void rd_tail_block(
     const int k2 = i >> p.log2_w, k = i & (w - 1);
     int acc = 0;
     for (int y = 0; y < h; ++y) acc += Mh[k2 * h + y] * Bf[y * w + k];
-    A[i] = wrap16((acc + (1 << (p.s2 - 1))) >> p.s2);
+    const int coef = wrap16((acc + (1 << (p.s2 - 1))) >> p.s2);
+    A[i] = (k2 < p.keep_h && k < p.keep_w) ? coef : 0;
   }
   __syncthreads();
   // quant, bucket counts, dequant (in place)
@@ -116,6 +125,7 @@ __device__ __forceinline__ void rd_tail_block(
     int level = wrap_mul_add(a, p.scale, p.add) >> p.q_bits;
     level = clampi(level, 0, 32767);
     c_loc[min(level, 3)] += 1;
+    if (i == 0 && dc_level != nullptr) *dc_level = level;
     const int sgn = (c > 0) - (c < 0);
     const int dq = wrap_mul_add(sgn * level, p.iscale, 1 << (p.dq_shift - 1)) >> p.dq_shift;
     A[i] = clip16(dq);

@@ -1,7 +1,8 @@
 // K4 rd_cost: mode decision and rate-distortion cost of every block of a class.
 //
 // Replaces: uvg266_tpu/ops/rd_cost.py:78 make_rd_cost_fn (after its SATD,
-// which is K3). Per block:
+// which is K3). Per block, over its M candidate predictions (the 67 intra
+// modes, or the MIP candidates of a class):
 //   best = argmin_m float(satd[m]) + sqrt(lam) * mode_bits[m]  (first minimum)
 //   bits, ssd = the RD tail (common.cuh rd_tail_block) of preds[best]
 //   rd   = float(ssd) + lam * (bits + mode_bits[best])
@@ -34,7 +35,7 @@ __global__ void rd_cost_kernel(const int* __restrict__ preds,
                                const int8_t* __restrict__ mat_h,
                                const float* __restrict__ wts,
                                const float* __restrict__ mode_bits,
-                               uvg::RdTail p, float lam,
+                               uvg::RdTail p, int M, float lam,
                                int* __restrict__ best_out,
                                float* __restrict__ rd_out,
                                int* __restrict__ satd_out) {
@@ -47,12 +48,12 @@ __global__ void rd_cost_kernel(const int* __restrict__ preds,
   const int hw = p.w * p.h;
 
   if (tid < 32) {
-    // first minimum of satd + sqrt(lam) * mode_bits over the 67 modes
+    // first minimum of satd + sqrt(lam) * mode_bits over the M candidates
     const float lam_sqrt = __fsqrt_rn(lam);
     float bc = 0.f;
     int bi = -1;
-    for (int m = tid; m < uvg::NUM_MODES; m += 32) {
-      const float c = __fadd_rn(__int2float_rn(satds[cu * uvg::NUM_MODES + m]),
+    for (int m = tid; m < M; m += 32) {
+      const float c = __fadd_rn(__int2float_rn(satds[cu * M + m]),
                                 __fmul_rn(lam_sqrt, mode_bits[m]));
       if (bi < 0 || c < bc) { bc = c; bi = m; }
     }
@@ -69,7 +70,7 @@ __global__ void rd_cost_kernel(const int* __restrict__ preds,
   }
   __syncthreads();
   const int best = best_s;
-  const int* pred = preds + (static_cast<long long>(cu) * uvg::NUM_MODES + best) * hw;
+  const int* pred = preds + (static_cast<long long>(cu) * M + best) * hw;
   const int* sb = src + static_cast<long long>(cu) * hw;
   uvg::rd_tail_block(pred, sb, mat_w, mat_h, p, smem, cnt, &ssd_s);
   if (tid == 0) {
@@ -77,26 +78,26 @@ __global__ void rd_cost_kernel(const int* __restrict__ preds,
     const float ssd_f = __int2float_rn(static_cast<int>(ssd_s));
     best_out[cu] = best;
     rd_out[cu] = __fadd_rn(ssd_f, __fmul_rn(lam, __fadd_rn(bits, mode_bits[best])));
-    satd_out[cu] = satds[cu * uvg::NUM_MODES + best];
+    satd_out[cu] = satds[cu * M + best];
   }
 }
 
 }  // namespace
 
 extern "C" int rd_cost(const void* preds, const void* src, const void* satds,
-                       int B, int w, int h, const void* mat_w,
+                       int B, int M, int w, int h, const void* mat_w,
                        const void* mat_h, const void* wts,
                        const void* mode_bits, int bitdepth, int q_bits,
                        int scale, int add, int iscale, int dq_shift, float lam,
                        void* best, void* rd, void* satd_best, void* stream) {
   const uvg::RdTail p = uvg::rd_tail_params(w, h, bitdepth, q_bits, scale, add,
                                             iscale, dq_shift);
-  if (B <= 0) return static_cast<int>(cudaSuccess);
+  if (B <= 0 || M <= 0) return static_cast<int>(cudaSuccess);
   rd_cost_kernel<<<B, 256, uvg::rd_tail_smem(w, h), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(preds), static_cast<const int*>(src),
       static_cast<const int*>(satds), static_cast<const int8_t*>(mat_w),
       static_cast<const int8_t*>(mat_h), static_cast<const float*>(wts),
-      static_cast<const float*>(mode_bits), p, lam, static_cast<int*>(best),
+      static_cast<const float*>(mode_bits), p, M, lam, static_cast<int*>(best),
       static_cast<float*>(rd), static_cast<int*>(satd_best));
   return static_cast<int>(cudaGetLastError());
 }

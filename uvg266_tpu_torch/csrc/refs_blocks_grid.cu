@@ -1,10 +1,12 @@
 // K1 refs_blocks_grid: intra reference lines and source blocks for one size
-// class on a static position grid.
+// class on a static position grid; K12a refs_blocks: the same at block
+// origins given as two arrays (second C entry, same device code).
 //
 // Replaces: uvg266_tpu/ops/intra_batch.py:619 make_refs_blocks_grid_fn and
-// its smoothing/packing, _smooth_pack (:600).
+// its smoothing/packing, _smooth_pack (:600); :552 make_refs_blocks_fn.
 //
-// For block b = (by, bx) at (x, y) = (x0 + bx*sx, y0 + by*sy) of frame f:
+// For block b = (by, bx) at (x, y) = (x0 + bx*sx, y0 + by*sy) of frame f,
+// or at (x, y) = (xs[b], ys[b]):
 //   top[i]  = P[y, x + min(i, Lt-1)]      Lt = min(3w+3, REF_LEN)
 //   left[i] = P[y + min(i, Ll-1), x]      Ll = min(3h+3, REF_LEN)
 // where P is the reference plane edge-padded by one at top and left:
@@ -51,8 +53,11 @@ __device__ __forceinline__ int left_at(const int* __restrict__ s, const Grid& g,
   return psample(s, g, y + min(i, g.Ll - 1), x);
 }
 
+// xs, ys: the block origins [B], or null for those of the grid
 __global__ void refs_blocks_grid_kernel(const int* __restrict__ src,
-                                        const int* __restrict__ refsrc, Grid g,
+                                        const int* __restrict__ refsrc,
+                                        const int* __restrict__ xs,
+                                        const int* __restrict__ ys, Grid g,
                                         int F, int* __restrict__ refs,
                                         int* __restrict__ blocks) {
   const int n_refs = F * g.B * uvg::NREF;
@@ -65,8 +70,8 @@ __global__ void refs_blocks_grid_kernel(const int* __restrict__ src,
       const int fb = idx / uvg::NREF;
       const int b = fb % g.B;
       const int* s = refsrc + static_cast<long long>(fb / g.B) * g.H * g.W;
-      const int x = g.x0 + (b % g.gx) * g.sx;
-      const int y = g.y0 + (b / g.gx) * g.sy;
+      const int x = xs ? xs[b] : g.x0 + (b % g.gx) * g.sx;
+      const int y = ys ? ys[b] : g.y0 + (b / g.gx) * g.sy;
       const int sec = j / uvg::REF_LEN;
       const int i = j % uvg::REF_LEN;
       const bool is_top = (sec & 1) == 0;   // sections 0, 2: top
@@ -94,11 +99,22 @@ __global__ void refs_blocks_grid_kernel(const int* __restrict__ src,
       const int fb = k / hw;
       const int b = fb % g.B;
       const int* s = src + static_cast<long long>(fb / g.B) * g.H * g.W;
-      const int x = g.x0 + (b % g.gx) * g.sx + p % g.w;
-      const int y = g.y0 + (b / g.gx) * g.sy + p / g.w;
+      const int x = (xs ? xs[b] : g.x0 + (b % g.gx) * g.sx) + p % g.w;
+      const int y = (ys ? ys[b] : g.y0 + (b / g.gx) * g.sy) + p / g.w;
       blocks[k] = s[uvg::clampi(y, 0, g.H - 1) * g.W + uvg::clampi(x, 0, g.W - 1)];
     }
   }
+}
+
+int launch(const int* src, const int* refsrc, const int* xs, const int* ys,
+           const Grid& g, int F, int* refs, int* blocks, cudaStream_t stream) {
+  const long long n = static_cast<long long>(F) * g.B * (uvg::NREF + g.w * g.h);
+  if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  const int threads = 256;
+  refs_blocks_grid_kernel<<<uvg::grid_for(n, threads), threads, 0, stream>>>(
+      src, refsrc, xs, ys, g, F, refs, blocks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -109,15 +125,22 @@ extern "C" int refs_blocks_grid(const void* src, const void* refsrc, int F,
                                 int gy, void* refs, void* blocks, void* stream) {
   Grid g{H, W, w, h, x0, y0, sx, sy, gx, gx * gy,
          std::min(3 * w + 3, uvg::REF_LEN), std::min(3 * h + 3, uvg::REF_LEN)};
-  const long long n = static_cast<long long>(F) * g.B * (uvg::NREF + w * h);
-  if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  refs_blocks_grid_kernel<<<uvg::grid_for(n, threads), threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(src), static_cast<const int*>(refsrc), g, F,
-      static_cast<int*>(refs),
-      static_cast<int*>(blocks));
-  return static_cast<int>(cudaGetLastError());
+  return launch(static_cast<const int*>(src), static_cast<const int*>(refsrc),
+                nullptr, nullptr, g, F, static_cast<int*>(refs),
+                static_cast<int*>(blocks), static_cast<cudaStream_t>(stream));
+}
+
+// K12a: one plane, B blocks at (xs[b], ys[b]) (int32 arrays on the device)
+extern "C" int refs_blocks(const void* src, int H, int W, const void* xs,
+                           const void* ys, int B, int w, int h, void* refs,
+                           void* blocks, void* stream) {
+  Grid g{H, W, w, h, 0, 0, w, h, 1, B,
+         std::min(3 * w + 3, uvg::REF_LEN), std::min(3 * h + 3, uvg::REF_LEN)};
+  return launch(static_cast<const int*>(src), static_cast<const int*>(src),
+                static_cast<const int*>(xs), static_cast<const int*>(ys), g, 1,
+                static_cast<int*>(refs), static_cast<int*>(blocks),
+                static_cast<cudaStream_t>(stream));
 }
 
 UVG_ERROR_ENTRY(refs_blocks_grid)
+UVG_ERROR_ENTRY(refs_blocks)

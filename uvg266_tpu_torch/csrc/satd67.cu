@@ -1,4 +1,5 @@
-// K3 satd67: SATD of every intra mode's prediction against its source block.
+// K3 satd67: SATD of every candidate prediction against its source block
+// (the 67 intra modes, or the M = 12, 16 or 32 MIP candidates of a class).
 //
 // Replaces: uvg266_tpu/ops/intra_batch.py:521 make_satd67_fn (the reference
 // runs it inside make_rd_cost_fn, ops/rd_cost.py:105). Per (block, mode):
@@ -6,7 +7,7 @@
 // (n = 8, or 4 when w or h is below 8), s = sum|t| - |t00| + (|t00| >> 2),
 // (s + 2) >> 2 ((s + 1) >> 1 at n = 4), summed over the sub-blocks.
 //
-// Bound on this card: bytes, by the read of preds [B, 67, h, w] int32
+// Bound on this card: bytes, by the read of preds [B, M, h, w] int32
 // (about 420 MB per 832x480 frame); about ten integer additions per sample.
 // Design: the Hadamard matrix has +-1 entries, so it is done with adds.
 // Each lane holds one row of one sub-block (n values in registers) and
@@ -26,8 +27,8 @@ namespace {
 
 template <int N>
 __global__ void satd67_kernel(const int* __restrict__ preds,
-                              const int* __restrict__ src, int n_pairs, int w,
-                              int h, int* __restrict__ out) {
+                              const int* __restrict__ src, int n_pairs, int M,
+                              int w, int h, int* __restrict__ out) {
   constexpr int ADD = N == 8 ? 2 : 1;
   constexpr int SHIFT = N == 8 ? 2 : 1;
   const int nsb_x = w / N;
@@ -41,7 +42,7 @@ __global__ void satd67_kernel(const int* __restrict__ preds,
   const bool active = pair < n_pairs;
   const int hw = w * h;
   const int* P = preds + static_cast<long long>(active ? pair : 0) * hw;
-  const int* S = src + static_cast<long long>(active ? pair / uvg::NUM_MODES : 0) * hw;
+  const int* S = src + static_cast<long long>(active ? pair / M : 0) * hw;
   const int iters = nsb * N / lpp;
   int acc = 0;
   for (int it = 0; it < iters; ++it) {
@@ -102,10 +103,10 @@ __global__ void satd67_kernel(const int* __restrict__ preds,
 
 }  // namespace
 
-extern "C" int satd67(const void* preds, const void* src, int B, int w, int h,
-                      void* out, void* stream) {
+extern "C" int satd67(const void* preds, const void* src, int B, int M, int w,
+                      int h, void* out, void* stream) {
   const int n = (w >= 8 && h >= 8) ? 8 : 4;
-  const int n_pairs = B * uvg::NUM_MODES;
+  const int n_pairs = B * M;
   const int lpp = std::min(32, (w / n) * (h / n) * n);
   const long long warps = (static_cast<long long>(n_pairs) + 32 / lpp - 1) / (32 / lpp);
   const int threads = 256;
@@ -115,11 +116,11 @@ extern "C" int satd67(const void* preds, const void* src, int B, int w, int h,
   if (n == 8)
     satd67_kernel<8><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
         static_cast<const int*>(preds), static_cast<const int*>(src), n_pairs,
-        w, h, static_cast<int*>(out));
+        M, w, h, static_cast<int*>(out));
   else
     satd67_kernel<4><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
         static_cast<const int*>(preds), static_cast<const int*>(src), n_pairs,
-        w, h, static_cast<int*>(out));
+        M, w, h, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

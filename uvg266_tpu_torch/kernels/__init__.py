@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled on first
 use by ``nvcc`` into a shared library of its own, cached under ``build/``
 by a hash of its sources and flags, and loaded with ``ctypes``. ``build()``
-starts one ``nvcc`` per source, all at once. There is no CPU fallback
+starts one ``nvcc`` per source, all at once. A kernel is named after its
+C entry; its source is ``csrc/<name>.cu`` unless ``SOURCE`` names another
+(a source may hold several entries that share device code). There is no CPU fallback
 here: a wrapper reaches ``launch`` only for a CUDA tensor, and ``launch``
 raises when the kernel cannot be built or launched.
 
@@ -40,11 +42,11 @@ SIGNATURES = {
     # refs, B, w, h, max_pix, K, W, pdpc_wl, pdpc_sidx, hv_wl, hv_sidx,
     # needs_clip, pdpc_on, hv_on, hv_topleft, pd_wl, pd_wt, preds
     "predict67": [_P, _I, _I, _I, _I] + [_P] * 13 + [_P],
-    # preds, src, B, w, h, out
-    "satd67": [_P, _P, _I, _I, _I, _P, _P],
-    # preds, src, satds, B, w, h, mat_w, mat_h, wts, mode_bits,
+    # preds, src, B, M, w, h, out
+    "satd67": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # preds, src, satds, B, M, w, h, mat_w, mat_h, wts, mode_bits,
     # bitdepth, q_bits, scale, add, iscale, dq_shift, lam, best, rd, satd
-    "rd_cost": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+    "rd_cost": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                 _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     # src, H, W, mat, bitdepth, q_bits, scale, add, dscale, dq_shift, out
     "pseudo_recon": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -58,7 +60,17 @@ SIGNATURES = {
                     _P],
     # windows, blocks, leaf_ids, nt, nl, pen, bitdepth, satd, best, cost, seg
     "leaf_qpel": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P],
+    # src, H, W, xs, ys, B, w, h, bitdepth, mat, preds
+    "mip_preds": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # preds, src, B, w, h, mts_w, mts_h, keep (host), tr_idx (host), wts,
+    # bitdepth, q_bits, scale, add, iscale, dq_shift, lam, tr, cost, dc_only
+    "mts_search": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _I, _F, _P, _P, _P, _P],
+    # src, H, W, xs, ys, B, w, h, refs, blocks
+    "refs_blocks": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
 }
+# kernels whose C entry lives in another kernel's source
+SOURCE = {"refs_blocks": "refs_blocks_grid"}
 LAUNCHES = dict.fromkeys(SIGNATURES, 0)
 _LIBS: dict = {}
 
@@ -76,7 +88,13 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def source_of(name: str) -> str:
+    """The source (without .cu) that holds kernel ``name``'s C entry."""
+    return SOURCE.get(name, name)
+
+
 def lib_path(name: str) -> str:
+    name = source_of(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (f"{name}.cu",) + _HEADERS:
         with open(os.path.join(CSRC, f), "rb") as fh:
@@ -88,7 +106,8 @@ def build(names=None) -> dict:
     """Compile the listed kernels (default: all) that are not cached yet,
     one nvcc per source, all started together. Returns the seconds each
     build took (0.0 when cached); raises with nvcc's output on failure."""
-    names = list(SIGNATURES if names is None else names)
+    names = list(dict.fromkeys(
+        source_of(n) for n in (SIGNATURES if names is None else names)))
     todo = [n for n in names if not os.path.exists(lib_path(n))]
     secs = dict.fromkeys(names, 0.0)
     if not todo:

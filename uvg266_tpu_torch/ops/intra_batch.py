@@ -2,8 +2,8 @@
 
 Port of uvg266_tpu/ops/intra_batch.py. The host part (static mode tables,
 reference packing, single-block numpy prediction, grid detection) is a
-verbatim copy of the reference's. The three device functions of the
-all-intra frame search each come as a plain PyTorch version plus a wrapper
+verbatim copy of the reference's. The device functions of the
+intra search each come as a plain PyTorch version plus a wrapper
 that launches the hand-written CUDA kernel (csrc/) for tensors on the card:
 
 - K1 ``refs_blocks_grid``: reference lines and source blocks on a static
@@ -11,7 +11,10 @@ that launches the hand-written CUDA kernel (csrc/) for tensors on the card:
   (reference: make_refs_blocks_grid_fn and its ``refsrc``);
 - K2 ``predict67``: all 67 modes (reference: make_predict_matmul_fn, the
   bit-exact twin of the gather form make_predict_fn);
-- K3 ``satd67``: per-mode SATD (reference: make_satd67_fn).
+- K3 ``satd67``: per-candidate SATD, for any candidate count (reference:
+  make_satd67_fn);
+- K12a ``refs_blocks``: K1 at block origins given as arrays, off any grid
+  (reference: make_refs_blocks_fn).
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel or raises. Nothing falls back from one to the other.
@@ -443,6 +446,64 @@ def refs_blocks_grid(src: torch.Tensor, w: int, h: int, grid,
     return refs, blocks
 
 
+def positions_on(xs, ys, w: int, h: int, H: int, W: int, device):
+    """Block origins given on the host (sequences or numpy arrays) as two
+    int32 tensors on ``device`` (the rows of one [2, B] tensor: one copy);
+    raises for a w x h block that does not lie inside the H x W plane (the
+    reference's gather would clamp silently)."""
+    xs = np.asarray(xs, dtype=np.int32).reshape(-1)
+    ys = np.asarray(ys, dtype=np.int32).reshape(-1)
+    if xs.shape != ys.shape:
+        raise ValueError("block positions: xs and ys differ in length")
+    if xs.size and (xs.min() < 0 or ys.min() < 0 or xs.max() + w > W
+                    or ys.max() + h > H):
+        raise ValueError(f"block positions: a {w}x{h} block lies outside "
+                         f"the {W}x{H} plane")
+    xy = torch.from_numpy(np.stack([xs, ys])).to(device)
+    return xy[0], xy[1]
+
+
+def refs_blocks_plain(src: torch.Tensor, xs, ys, w: int, h: int):
+    """K12a, plain version: src [H, W] int32, block origins xs, ys [B]
+    (host arrays) -> (refs [B, 4*REF_LEN], blocks [B, h, w]) int32: K1's
+    references and blocks at arbitrary positions inside the plane."""
+    H, W = src.shape
+    xd, yd = positions_on(xs, ys, w, h, H, W, src.device)
+    xd, yd = xd.long(), yd.long()
+    B = xd.numel()
+    Lt = min(3 * w + 3, REF_LEN)
+    Ll = min(3 * h + 3, REF_LEN)
+    i = torch.arange(REF_LEN, device=src.device)[None, :]
+
+    def padded(r, c):
+        return src[(r - 1).clamp(0, H - 1), (c - 1).clamp(0, W - 1)]
+
+    top = padded(yd[:, None].expand(B, REF_LEN),
+                 xd[:, None] + i.clamp(max=Lt - 1))
+    left = padded(yd[:, None] + i.clamp(max=Ll - 1),
+                  xd[:, None].expand(B, REF_LEN))
+    refs = _smooth_pack(top, left, w, h)
+    ry = yd[:, None, None] + torch.arange(h, device=src.device)[None, :, None]
+    cx = xd[:, None, None] + torch.arange(w, device=src.device)[None, None, :]
+    return refs, src[ry, cx].contiguous()
+
+
+def refs_blocks(src: torch.Tensor, xs, ys, w: int, h: int):
+    """K12a: refs_blocks_plain on the CPU, the CUDA kernel on the card."""
+    if src.device.type == "cpu":
+        return refs_blocks_plain(src, xs, ys, w, h)
+    dev = kernels.check_cuda("refs_blocks", src)
+    _check("refs_blocks", src, torch.int32, 2)
+    H, W = src.shape
+    xd, yd = positions_on(xs, ys, w, h, H, W, dev)
+    B = xd.numel()
+    refs = torch.empty((B, 4 * REF_LEN), dtype=torch.int32, device=dev)
+    blocks = torch.empty((B, h, w), dtype=torch.int32, device=dev)
+    kernels.launch("refs_blocks", dev, src.data_ptr(), H, W, xd.data_ptr(),
+                   yd.data_ptr(), B, w, h, refs.data_ptr(), blocks.data_ptr())
+    return refs, blocks
+
+
 def predict67_plain(refs: torch.Tensor, tables: dict) -> torch.Tensor:
     """K2, plain version: refs [B, 4*REF_LEN] int32 -> [B, 67, h, w] int32
     predictions, with make_predict_fn's gather arithmetic. ``tables`` is
@@ -578,11 +639,10 @@ def satd67(preds: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     _check("satd67", preds, torch.int32, 4)
     _check("satd67", src, torch.int32, 3)
     B, M, h, w = preds.shape
-    if M != NUM_MODES or tuple(src.shape) != (B, h, w) or w not in LOG2 \
-            or h not in LOG2:
-        raise ValueError("satd67: expects preds [B, 67, h, w], src [B, h, w]"
+    if tuple(src.shape) != (B, h, w) or w not in LOG2 or h not in LOG2:
+        raise ValueError("satd67: expects preds [B, M, h, w], src [B, h, w]"
                          " with w, h in 4..64, powers of two")
     out = torch.empty((B, M), dtype=torch.int32, device=dev)
-    kernels.launch("satd67", dev, preds.data_ptr(), src.data_ptr(), B, w, h,
-                   out.data_ptr())
+    kernels.launch("satd67", dev, preds.data_ptr(), src.data_ptr(), B, M, w,
+                   h, out.data_ptr())
     return out

@@ -4,7 +4,7 @@ Port of the host half of uvg266_tpu/ops/me.py: the mvd bit estimate and
 the full-pel rate-penalty table. The dense full-pel and 7x7 fractional
 search factories of that module (make_fullpel_search_fn,
 make_frac_search_fn, kernel K9) belong to the per-class inter path and are
-not ported yet (ROADMAP.md, 'Modules to port', item 7).
+not ported yet (ROADMAP.md, 'Modules to port', item 7b).
 """
 from __future__ import annotations
 

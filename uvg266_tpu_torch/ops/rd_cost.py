@@ -12,7 +12,10 @@ card. It takes the per-mode SATDs of K3 (ops.intra_batch.satd67) as an
 input; ``satd67`` followed by ``rd_cost`` is the reference's
 make_rd_cost_fn. K6 ``rd_cost_pred`` (csrc/rd_cost_pred.cu, the
 reference's make_rd_cost_pred_fn) costs one given prediction per block,
-with inter rounding and extra bits; both share the RD tail.
+with inter rounding and extra bits. K11 ``mts_search``
+(csrc/mts_search.cu, the reference's make_mts_search_fn) costs one given
+prediction under each of the five MTS transform pairs and picks the
+first minimum. All three share the RD tail.
 
 Both versions compute in int32 where the reference does (x64 off: its
 int64 casts are int32), wrapping on overflow as it does. The bits estimate
@@ -28,7 +31,6 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .intra_batch import NUM_MODES
 from .quant import INV_QUANT_SCALES, QUANT_SCALES
 from .tr_matrices import DCT2, DCT8, DST7
 from .transforms import fwd_shifts, inv_shifts
@@ -39,6 +41,8 @@ LOG2 = {4: 2, 8: 3, 16: 4, 32: 5, 64: 6}
 # 0=DCT2/DCT2, (1=skip), 2=DST7/DST7, 3=DCT8/DST7, 4=DST7/DCT8, 5=DCT8/DCT8
 MTS_PAIRS = {0: (DCT2, DCT2), 2: (DST7, DST7), 3: (DCT8, DST7),
              4: (DST7, DCT8), 5: (DCT8, DCT8)}
+# tr_idx of the MTS candidates, in the order the search tries them
+MTS_IDX = tuple(MTS_PAIRS)
 
 
 def quant_consts(w: int, h: int, bitdepth: int, qp: int,
@@ -75,16 +79,21 @@ _PLAIN_CHUNK = 1 << 24
 
 
 def _rd_tail_plain(pred, blk, c: dict, w: int, h: int, bitdepth: int, wts,
-                   tables: dict):
-    """The RD tail shared by K4 and K6 (csrc/common.cuh rd_tail_block):
-    pred, blk [b, h, w] int64 -> (bits [b] float32 as per-bucket counts
-    times wts, ssd [b] float32 of the int32-wrapped SSD)."""
+                   mat_w, mat_h, mask=None):
+    """The RD tail shared by K4, K6 and K11 (csrc/common.cuh
+    rd_tail_block): pred, blk [b, h, w] int64; mat_w [w, w], mat_h [h, h]
+    the horizontal and vertical transform matrices (rows = frequencies);
+    mask [h, w] the coefficients kept (default all) -> (bits [b] float32
+    as per-bucket counts times wts, ssd [b] float32 of the int32-wrapped
+    SSD, level [b, h, w] int64 the quantised levels)."""
     s1, s2 = fwd_shifts(w, h, bitdepth)
     si1, si2 = inv_shifts(bitdepth)
-    mw = tables["mat_w"].long()
-    mh = tables["mat_h"].long()
+    mw = mat_w.long()
+    mh = mat_h.long()
     t = _wrap((_imatmul(blk - pred, mw.T) + (1 << (s1 - 1))) >> s1, 16)
     coef = _wrap((_imatmul(mh, t) + (1 << (s2 - 1))) >> s2, 16)
+    if mask is not None:
+        coef = coef * mask.long()
     level = _wrap(coef.abs() * c["scale"] + c["add"], 32) >> c["q_bits"]
     level = level.clamp(0, 32767)
     bucket = level.clamp(max=3)
@@ -98,13 +107,15 @@ def _rd_tail_plain(pred, blk, c: dict, w: int, h: int, bitdepth: int, wts,
     u = ((_imatmul(mh.T, dq) + (1 << (si1 - 1))) >> si1).clamp(-32768, 32767)
     r = ((_imatmul(u, mw) + (1 << (si2 - 1))) >> si2).clamp(-32768, 32767)
     d = blk - (pred + r).clamp(0, (1 << bitdepth) - 1)
-    return bits, _wrap((d * d).sum(dim=(-2, -1)), 32).to(torch.float32)
+    return (bits, _wrap((d * d).sum(dim=(-2, -1)), 32).to(torch.float32),
+            level)
 
 
 def rd_cost_plain(preds, src, satds, qp: int, lam: float, wts, mode_bits,
                   tables: dict, bitdepth: int):
-    """K4, plain version. preds [B, 67, h, w], src [B, h, w], satds [B, 67]
-    int32; wts [4], mode_bits [67] float32; tables from
+    """K4, plain version. preds [B, M, h, w], src [B, h, w], satds [B, M]
+    int32 (M = 67 intra modes, or the MIP candidates of a class); wts [4],
+    mode_bits [M] float32; tables from
     ops.tables.device_tables -> (best [B] int32, rd [B] float32,
     satd_best [B] int32)."""
     B, _M, h, w = preds.shape
@@ -121,8 +132,9 @@ def rd_cost_plain(preds, src, satds, qp: int, lam: float, wts, mode_bits,
         sl = slice(b0, min(b0 + step, B))
         pred = preds[sl][torch.arange(sl.stop - sl.start, device=dev),
                          best[sl]].long()
-        bits[sl], ssd[sl] = _rd_tail_plain(pred, src[sl].long(), c, w, h,
-                                           bitdepth, wts, tables)
+        bits[sl], ssd[sl], _lv = _rd_tail_plain(
+            pred, src[sl].long(), c, w, h, bitdepth, wts, tables["mat_w"],
+            tables["mat_h"])
     rd = ssd + lam32 * (bits + mode_bits[best])
     return best.to(torch.int32), rd, satd_best
 
@@ -136,19 +148,19 @@ def rd_cost(preds, src, satds, qp: int, lam: float, wts, mode_bits,
     dev = kernels.check_cuda("rd_cost", preds, src, satds, wts, mode_bits,
                              tables["mat_w"], tables["mat_h"])
     B, M, h, w = preds.shape
-    if (M != NUM_MODES or tuple(src.shape) != (B, h, w)
-            or tuple(satds.shape) != (B, M)
+    if (tuple(src.shape) != (B, h, w) or tuple(satds.shape) != (B, M)
+            or tuple(mode_bits.shape) != (M,)
             or any(t.dtype != torch.int32 for t in (preds, src, satds))
             or wts.dtype != torch.float32 or mode_bits.dtype != torch.float32):
-        raise ValueError("rd_cost: expects int32 preds [B, 67, h, w], "
-                         "src [B, h, w], satds [B, 67] and float32 wts, "
-                         "mode_bits")
+        raise ValueError("rd_cost: expects int32 preds [B, M, h, w], "
+                         "src [B, h, w], satds [B, M] and float32 wts [4], "
+                         "mode_bits [M]")
     c = quant_consts(w, h, bitdepth, qp)
     best = torch.empty((B,), dtype=torch.int32, device=dev)
     rd = torch.empty((B,), dtype=torch.float32, device=dev)
     satd_best = torch.empty((B,), dtype=torch.int32, device=dev)
     kernels.launch("rd_cost", dev, preds.data_ptr(), src.data_ptr(),
-                   satds.data_ptr(), B, w, h, tables["mat_w"].data_ptr(),
+                   satds.data_ptr(), B, M, w, h, tables["mat_w"].data_ptr(),
                    tables["mat_h"].data_ptr(), wts.data_ptr(),
                    mode_bits.data_ptr(), bitdepth, c["q_bits"], c["scale"],
                    c["add"], c["iscale"], c["dq_shift"], float(lam),
@@ -171,8 +183,9 @@ def rd_cost_pred_plain(pred, src, qp: int, lam: float, wts, extra_bits,
     step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
     for b0 in range(0, B, step):
         sl = slice(b0, min(b0 + step, B))
-        bits[sl], ssd[sl] = _rd_tail_plain(pred[sl].long(), src[sl].long(),
-                                           c, w, h, bitdepth, wts, tables)
+        bits[sl], ssd[sl], _lv = _rd_tail_plain(
+            pred[sl].long(), src[sl].long(), c, w, h, bitdepth, wts,
+            tables["mat_w"], tables["mat_h"])
     return ssd + lam32 * (bits + extra_bits)
 
 
@@ -199,3 +212,72 @@ def rd_cost_pred(pred, src, qp: int, lam: float, wts, extra_bits,
                    c["q_bits"], c["scale"], c["add"], c["iscale"],
                    c["dq_shift"], float(lam), rd.data_ptr())
     return rd
+
+
+def mts_search_plain(pred, src, qp: int, lam: float, wts, mts: dict,
+                     bitdepth: int):
+    """K11, plain version: the RD cost of one given prediction per block
+    under each MTS candidate (tr_idx 0, 2, 3, 4, 5). pred, src [B, h, w]
+    int32 with w, h <= 32; wts [4] float32; ``mts`` from
+    ops.tables.device_mts_tables -> (tr_idx [B] int32 of the first
+    minimum, its cost [B] float32, dc_only [B] bool of the DCT2
+    candidate). cost = ssd + lam * (bits + signalling bits), the
+    signalling bits 1 for DCT2 and 1 + ci for candidate ci; a candidate
+    ci > 0 with no nonzero level beyond DC cannot signal mts_idx and is
+    pushed out by adding 1e30."""
+    B, h, w = pred.shape
+    c = quant_consts(w, h, bitdepth, qp)
+    dev = pred.device
+    lam32 = torch.tensor(np.float32(lam), device=dev)
+    n_c = len(MTS_IDX)
+    cost = torch.empty((B, n_c), dtype=torch.float32, device=dev)
+    dcs = torch.empty((B, n_c), dtype=torch.bool, device=dev)
+    step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
+    for b0 in range(0, B, step):
+        sl = slice(b0, min(b0 + step, B))
+        p64, s64 = pred[sl].long(), src[sl].long()
+        for ci in range(n_c):
+            bits, ssd, level = _rd_tail_plain(
+                p64, s64, c, w, h, bitdepth, wts, mts["mts_w"][ci],
+                mts["mts_h"][ci], mts["mts_mask"][ci])
+            bits = bits + (1.0 if ci == 0 else 1.0 + ci)
+            nz = level != 0
+            dc_only = (nz.sum(dim=(-2, -1)) - nz[:, 0, 0].long()) == 0
+            cc = ssd + lam32 * bits
+            if ci > 0:
+                cc = torch.where(dc_only, cc + np.float32(1e30), cc)
+            cost[sl, ci] = cc
+            dcs[sl, ci] = dc_only
+    best = torch.argmin(cost, dim=1)               # the first minimum
+    tr_idx = torch.tensor(MTS_IDX, dtype=torch.int32, device=dev)[best]
+    return tr_idx, cost.gather(1, best[:, None])[:, 0], dcs[:, 0].clone()
+
+
+def mts_search(pred, src, qp: int, lam: float, wts, mts: dict,
+               bitdepth: int):
+    """K11: mts_search_plain on the CPU, the CUDA kernel on the card."""
+    if pred.device.type == "cpu":
+        return mts_search_plain(pred, src, qp, lam, wts, mts, bitdepth)
+    dev = kernels.check_cuda("mts_search", pred, src, wts, mts["mts_w"],
+                             mts["mts_h"])
+    B, h, w = pred.shape
+    if (tuple(src.shape) != (B, h, w) or w > 32 or h > 32
+            or pred.dtype != torch.int32 or src.dtype != torch.int32
+            or wts.dtype != torch.float32 or (mts["w"], mts["h"]) != (w, h)
+            or mts["mts_w"].dtype != torch.int8
+            or mts["mts_h"].dtype != torch.int8):
+        raise ValueError("mts_search: expects int32 pred, src [B, h, w] with "
+                         "w, h <= 32, float32 wts and the class's MTS tables")
+    c = quant_consts(w, h, bitdepth, qp)
+    keep = np.ascontiguousarray(mts["mts_keep"], dtype=np.int32)
+    idx = np.ascontiguousarray(MTS_IDX, dtype=np.int32)
+    tr = torch.empty((B,), dtype=torch.int32, device=dev)
+    cost = torch.empty((B,), dtype=torch.float32, device=dev)
+    dc_only = torch.empty((B,), dtype=torch.bool, device=dev)
+    kernels.launch("mts_search", dev, pred.data_ptr(), src.data_ptr(), B, w,
+                   h, mts["mts_w"].data_ptr(), mts["mts_h"].data_ptr(),
+                   keep.ctypes.data, idx.ctypes.data, wts.data_ptr(),
+                   bitdepth, c["q_bits"], c["scale"], c["add"], c["iscale"],
+                   c["dq_shift"], float(lam), tr.data_ptr(), cost.data_ptr(),
+                   dc_only.data_ptr())
+    return tr, cost, dc_only

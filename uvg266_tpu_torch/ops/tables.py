@@ -7,12 +7,16 @@ built on the host with numpy exactly as the JAX package builds them:
   (K, W, pdpc_*, hv_*, pd_*) and the DCT2 matrices of the two sides;
 - per QP: the fast coefficient-cost weights FAST_COEFF_WTS and the
   quantiser scales QUANT_SCALES / INV_QUANT_SCALES;
+- per MIP size id: the weight matrices of ops.mip_tables;
+- per size class up to 32x32: the five MTS transform pairs (MTS_PAIRS) as
+  horizontal and vertical matrices, with their zero-out masks;
 - the per-mode signalling bits MODE_BITS of the mode preselection.
 
 ``tables_to_torch`` turns a dict of such numpy tables into tensors on a
 device, each stored in the narrowest integer type that holds its values
-(as the kernels read them); ``device_tables`` and ``frame_tables`` cache
-the result per class, QP and device.
+(as the kernels read them); ``device_tables``, ``frame_tables``,
+``mip_matrix`` and ``device_mts_tables`` cache the result per class, QP,
+size id and device.
 """
 from __future__ import annotations
 
@@ -23,7 +27,9 @@ import torch
 
 from .fast_cost_tables import FAST_COEFF_WTS
 from .intra_batch import build_mode_tables
+from .mip_tables import MIP_4X4, MIP_8X8, MIP_16X16
 from .quant import INV_QUANT_SCALES, QUANT_SCALES
+from .rd_cost import MTS_IDX, MTS_PAIRS
 from .tr_matrices import DCT2, get_matrix
 
 # rough per-mode signalling bits for the mode preselection (MPM-hit modes
@@ -36,10 +42,13 @@ MODE_BITS[1] = 3.0
 # 4*REF_LEN = 780, every weight and DCT2 entry within +-128
 NARROW = {"K": np.int16, "W": np.int8, "pdpc_wl": np.int8,
           "pdpc_sidx": np.int16, "hv_wl": np.int8, "hv_sidx": np.int16,
-          "hv_topleft": np.int16, "mat_w": np.int8, "mat_h": np.int8}
+          "hv_topleft": np.int16, "mat_w": np.int8, "mat_h": np.int8,
+          "mts_w": np.int8, "mts_h": np.int8, "mts_mask": np.int8}
 
-__all__ = ["FAST_COEFF_WTS", "INV_QUANT_SCALES", "MODE_BITS", "QUANT_SCALES",
-           "class_tables", "device_tables", "frame_tables", "tables_to_torch"]
+__all__ = ["FAST_COEFF_WTS", "INV_QUANT_SCALES", "MODE_BITS", "MTS_IDX",
+           "QUANT_SCALES", "class_tables", "device_mts_tables",
+           "device_tables", "frame_tables", "mip_matrix", "mip_mode_bits",
+           "mts_class_tables", "tables_to_torch"]
 
 
 def class_tables(w: int, h: int, bitdepth: int) -> dict:
@@ -82,3 +91,49 @@ def frame_tables(qp: int, device: str) -> dict:
     wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)].astype(np.float32)
     return tables_to_torch({"wts": wts, "mode_bits": MODE_BITS},
                            torch.device(device))
+
+
+def mts_class_tables(w: int, h: int) -> dict:
+    """numpy tables of the MTS search of one size class (w, h <= 32), one
+    entry per candidate of MTS_IDX: the horizontal matrices ``mts_w``
+    [5, w, w] and the vertical ones ``mts_h`` [5, h, h] (rows =
+    frequencies), the coefficient masks ``mts_mask`` [5, h, w] and, as
+    plain ints, the kept rectangle ``mts_keep`` ((keep_w, keep_h), ...):
+    a 32-point DST7 or DCT8 keeps its first 16 coefficients."""
+    mw, mh, masks, keep = [], [], [], []
+    for idx in MTS_IDX:
+        th, tv = MTS_PAIRS[idx]
+        keep_w = 16 if (th != DCT2 and w == 32) else w
+        keep_h = 16 if (tv != DCT2 and h == 32) else h
+        mask = np.zeros((h, w), dtype=np.int32)
+        mask[:keep_h, :keep_w] = 1
+        mw.append(get_matrix(th, w))
+        mh.append(get_matrix(tv, h))
+        masks.append(mask)
+        keep.append((keep_w, keep_h))
+    return {"mts_w": np.stack(mw), "mts_h": np.stack(mh),
+            "mts_mask": np.stack(masks), "mts_keep": tuple(keep),
+            "w": w, "h": h}
+
+
+@lru_cache(maxsize=None)
+def device_mts_tables(w: int, h: int, device: str) -> dict:
+    """mts_class_tables(w, h) on ``device``, built once per process."""
+    return tables_to_torch(mts_class_tables(w, h), torch.device(device))
+
+
+@lru_cache(maxsize=None)
+def mip_matrix(size_id: int, device: str) -> torch.Tensor:
+    """The MIP weight matrix of a size id, uint8 [n_modes, red_pred^2,
+    2*red_bdry] on ``device``."""
+    m = (MIP_4X4, MIP_8X8, MIP_16X16)[size_id]
+    return torch.from_numpy(np.ascontiguousarray(m, dtype=np.uint8)) \
+        .to(torch.device(device))
+
+
+@lru_cache(maxsize=None)
+def mip_mode_bits(n_cand: int, device: str) -> torch.Tensor:
+    """The flat 6.0 signalling bits of the n_cand MIP candidates, float32
+    on ``device`` (the reference's mip_bits of dispatch_blocks)."""
+    return torch.full((n_cand,), 6.0, dtype=torch.float32,
+                      device=torch.device(device))
