@@ -28,6 +28,13 @@ Phases, one line each (or a few), any failure exits non-zero:
      the class's 12 or 16 MIP candidates, K11 mts_search (classes up to
      32x32) on K4's winning prediction and on the largest residual: all
      outputs equal, tolerance 0;
+  4c. the kernels of the per-class inter search and of the rough search at
+     832x480 (frame, flat and edge planes, 8 and 10 bits): K9a
+     fullpel_search and K9b frac_search at the inter classes of the 10-bit
+     LD path (and K9a on all-max 10-bit planes at every class, 64x64
+     included), K2 over the 35 stage-1 modes, K12b predict_modes (the
+     refine lists and random lists) and the K12c rough_refine chain at
+     every class of the rough path: all outputs equal, tolerance 0;
   5. the all-intra path: Encoder(cfg, device="cuda").feed/flush of a
      10-frame 832x480 all-intra QP22 clip (bench.py's configuration); K1-K4
      must launch once per size class and frame, every other kernel never;
@@ -47,13 +54,27 @@ Phases, one line each (or a few), any failure exits non-zero:
      search_blocks: K2, K3, K4 once per class and frame, K11 once per class
      up to 32x32, K1 never (the references are built on the host); wall fps
      and device busy time of both;
+  7c. the per-class paths, each through Encoder.feed/flush at 832x480 with
+     its launch counts: the 10-bit LD path (the LD configuration at 10
+     bits, 5 frames: every device inter path declines, so each P/B frame
+     runs search_combined per class: K2, K3, K4 per class, K9a, K9b and K6
+     per inter class and unique reference, K6 once more per inter class of
+     a B slice); the slow-tools RA path (RA GOP 8 with bipred, two
+     references, MTS 3 and MIP, as the slower preset pairs them, 9 frames:
+     search_combined with K11 per class up to 32x32 and the bipred
+     candidate); the rough path (the all-intra configuration with
+     intra_rough, 3 frames: per class K12a, K2 at 35 modes, K3 twice,
+     K12b, the two K12c selections and K6); wall fps and device busy time
+     of each;
   8. the card against the CPU (plain versions): all-intra frame 0, the
      first three LD frames (I, P, P), a three-frame clip of the dense path
-     (I, P, B) and frame 0 of the MIP and MTS paths must give
-     byte-identical access units and recon;
-  9. 192x128 clips encoded on the card (all-intra, LD, dense RA, MIP, MTS)
-     decode through the port's oracle decoder, with their references, to
-     the encoder's reconstruction;
+     (I, P, B), frame 0 of the MIP and MTS paths, the first two frames of
+     the 10-bit LD path (I, P), a three-frame clip of the slow-tools RA
+     path (I, P, B) and frame 0 of the rough path must give byte-identical
+     access units and recon;
+  9. 192x128 clips encoded on the card (all-intra, LD, dense RA, MIP, MTS,
+     10-bit LD, slow-tools RA, rough) decode through the port's oracle
+     decoder, with their references, to the encoder's reconstruction;
  10. a JSON line with each kernel's numbers, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -73,6 +94,8 @@ W, H, FRAMES, QP = 832, 480, 10, 22
 LD_FRAMES, LD_QP = 40, 27          # bench.py:63, :77
 RA_FRAMES = 9                      # IDR + one random-access GOP of 8
 TOOL_FRAMES = 3                    # the MIP and MTS paths (Python finalize)
+LD10_FRAMES = 5                    # the 10-bit LD path: IDR + 4 P/B
+ROUGH_FRAMES = 3                   # the rough all-intra path
 R = 16                             # full-pel search range of the dense path
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 OPS_PER_S = 67e12             # H100 SXM float32 rate outside the tensor cores,
@@ -89,13 +112,19 @@ REPLACES = {
     "mip_preds": "uvg266_tpu/ops/mip.py:108",
     "mts_search": "uvg266_tpu/ops/rd_cost.py:230",
     "refs_blocks": "uvg266_tpu/ops/intra_batch.py:552",
+    "fullpel_search": "uvg266_tpu/ops/me.py:40",
+    "frac_search": "uvg266_tpu/ops/me.py:79",
+    "predict_modes": "uvg266_tpu/ops/intra_batch.py:374",
+    "rough_refine": "uvg266_tpu/ops/rd_cost.py:154",
 }
 INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
 # the path whose run gives each kernel's "launches" in the JSON line
 MAIN_PATH = {**dict.fromkeys(INTRA_KERNELS, "all-intra"),
              "pseudo_recon": "low-delay", "rd_cost_pred": "dense RA",
              "frame_inter": "dense RA", "leaf_qpel": "dense RA",
-             "mip_preds": "MIP", "refs_blocks": "MIP", "mts_search": "MTS"}
+             "mip_preds": "MIP", "refs_blocks": "MIP", "mts_search": "MTS",
+             "fullpel_search": "10-bit LD", "frac_search": "10-bit LD",
+             "predict_modes": "rough", "rough_refine": "rough"}
 
 
 def fail(msg: str) -> None:
@@ -144,6 +173,42 @@ def mip_config(Config, w=W, h=H):
 def mts_config(Config, w=W, h=H):
     """The all-intra benchmark configuration with intra MTS on."""
     return dataclasses.replace(bench_config(Config, w, h), mts=1)
+
+
+def ld10_config(Config, w=W, h=H):
+    """The low-delay benchmark configuration at 10 bits (Main 10)."""
+    return dataclasses.replace(ld_config(Config, w, h), input_bitdepth=10)
+
+
+def slow_ra_config(Config, w=W, h=H):
+    """Random access, GOP 8, with the tools the slower presets pair
+    (uvg266_tpu/cfg.py:229-248): bipred, two references, MTS 3 and MIP;
+    rdoq on (the Config default)."""
+    return Config(width=w, height=h, qp=LD_QP, gop_len=8, gop_lowdelay=False,
+                  bipred=1, ref_frames=2, mts=3, mip=True)
+
+
+def rough_config(Config, w=W, h=H):
+    """The all-intra benchmark configuration with the rough intra search."""
+    return dataclasses.replace(bench_config(Config, w, h), intra_rough=True)
+
+
+def clip_for(cfg, clip):
+    """An 8-bit clip of (y, u, v) planes at the configuration's bit depth."""
+    sc = 1 << (cfg.input_bitdepth - 8)
+    return [tuple(p * sc for p in f) for f in clip]
+
+
+def search_classes(ps):
+    """(w, h, positions) of every class PartitionSearch.search gives its
+    per-class function: the lattice shapes, then the TT middle children."""
+    out = [(w, h, ps._positions(max(w, h), w, h)[0]) for (w, h) in ps._shapes()]
+    for s_ in ps.tt_parents:
+        for vert in (False, True):
+            pos = ps._tt_mid_positions(s_, vert)
+            if pos:
+                out.append(((s_ >> 1), s_, pos) if vert else (s_, (s_ >> 1), pos))
+    return out
 
 
 def dense_config(Config, w=W, h=H):
@@ -218,8 +283,50 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
                    for i, (kw_, kh_) in enumerate(kw["keep"]))
         return 2 * B * hw * 4 + 5 * (w * w + h * h) + 16 + B * 9, B * ops_
     if name == "predict67":
-        tables = 67 * hw * 12 + 67 * 8 + (w + h) * 4
-        return B * 780 * 4 + tables + B * 67 * hw * 4, B * 67 * hw * 12
+        # M = 67, or a mode subset (its list read too)
+        tables = M * hw * 12 + M * 8 + (w + h) * 4 + (M * 4 if M < 67 else 0)
+        return B * 780 * 4 + tables + B * M * hw * 4, B * M * hw * 12
+    if name == "predict_modes":
+        # the references and the mode lists in, the [67, h*w] tables read
+        # once, the predictions out; 12 operations per sample as K2
+        R_ = kw["R"]
+        return (B * 780 * 4 + B * R_ * 4 + 67 * hw * 12 + 67 * 8
+                + B * R_ * hw * 4, B * R_ * hw * 12)
+    if name == "fullpel_search":
+        # the reference plane, the blocks, positions and penalty in; MVs
+        # and cost out. corr: a multiply-add per sample and offset; r2 as
+        # box sums (a square and two sliding add/subtract pairs per window
+        # sample); b2; per offset three operations to combine, the penalty
+        # add and a compare
+        nn = (2 * R + 1) ** 2
+        return ((H_ * W_ + B * hw + 2 * B + nn + 3 * B) * 4,
+                B * (nn * hw * 2 + (h + 2 * R) * (w + 2 * R) * 5 + hw * 2
+                     + nn * 5))
+    if name == "frac_search":
+        # the reference plane, blocks, positions, MVs and penalty in; best,
+        # preds [B, 49, h, w] and costs out. Per block: the horizontal
+        # 8-tap pass for the 3 fractional x phases over the h + 8 rows and
+        # w + 1 columns the offsets share, the vertical 8-tap pass for the
+        # 42 offsets with a fractional y, the SATD of all 49, a penalty add
+        # and a compare each
+        n = 8 if (w >= 8 and h >= 8) else 4
+        per = (3 * (h + 8) * (w + 1) * 16 + 42 * hw * 16
+               + 49 * hw * satd_ops(n) + 49 * 2)
+        return ((H_ * W_ + B * hw + 4 * B + 49 + B * 49 * hw + B * 49 + B)
+                * 4, B * per)
+    if name == "rough_refine":
+        # the sum of its stages: K2 over the 35 stage-1 modes, K3, stage 1
+        # (35 costs, two scans, the refine list), K12b over 4 modes, K3,
+        # stage 2 (39 costs, a scan, the winner gathered), K6
+        parts = [work("predict67", B, w, h, H_, W_, M=35),
+                 work("satd67", B, w, h, H_, W_, M=35),
+                 ((B * 35 + 67 + 35 + B * 4) * 4, B * (35 * 3 + 33 * 2)),
+                 work("predict_modes", B, w, h, H_, W_, R=4),
+                 work("satd67", B, w, h, H_, W_, M=4),
+                 ((B * (35 + 4 + 4) + 67 + 35 + 2 * B * hw + 3 * B) * 4,
+                  B * 39 * 4),
+                 work("rd_cost_pred", B, w, h, H_, W_)]
+        return sum(p[0] for p in parts), sum(p[1] for p in parts)
     if name == "satd67":
         n = 8 if (w >= 8 and h >= 8) else 4
         return (B * M * hw * 4 + B * hw * 4 + B * M * 4,
@@ -322,6 +429,7 @@ def main() -> int:
     from uvg266_tpu_torch.control.partition import (PartitionSearch,
                                                     qp_to_lambda)
     from uvg266_tpu_torch.ops import intra_batch as ib
+    from uvg266_tpu_torch.ops import me
     from uvg266_tpu_torch.ops import me_frame as mf
     from uvg266_tpu_torch.ops import mip as mp
     from uvg266_tpu_torch.ops import pseudo_recon as pr
@@ -329,8 +437,9 @@ def main() -> int:
     from uvg266_tpu_torch.ops.inter import fetch_extended_block
     from uvg266_tpu_torch.ops.me import make_mv_penalty
     from uvg266_tpu_torch.ops.tables import (device_mts_tables, device_tables,
-                                             frame_tables, mip_matrix,
-                                             mip_mode_bits)
+                                             frame_tables, me_penalties,
+                                             mip_matrix, mip_mode_bits,
+                                             rough_modes)
     from uvg266_tpu_torch.oracle.decoder import decode_au
 
     dev = torch.device("cuda")
@@ -405,15 +514,19 @@ def main() -> int:
     frame_src = torch.from_numpy(frames[0][0]).to(dev)
     pseudo0 = pr.pseudo_recon(frame_src, LD_QP, 8)
 
+    def checker(bd):
+        """An 8x8 checkerboard of 0 and the maximum sample."""
+        return (((torch.arange(H, device=dev)[:, None] // 8
+                  + torch.arange(W, device=dev)[None] // 8) % 2)
+                * ((1 << bd) - 1)).to(torch.int32)
+
     def class_planes(bd):
         """The planes the per-class kernels are checked on: random, 8x8
         checkerboard of 0 and the maximum, and at 8 bits the clip's frame."""
         mx = (1 << bd) - 1
         planes = {"rand": torch.randint(0, mx + 1, (H, W), generator=gen,
                                         device=dev, dtype=torch.int32),
-                  "edge": (((torch.arange(H, device=dev)[:, None] // 8
-                             + torch.arange(W, device=dev)[None] // 8) % 2)
-                           * mx).to(torch.int32)}
+                  "edge": checker(bd)}
         if bd == 8:
             planes["frame"] = frame_src
         return planes
@@ -707,6 +820,133 @@ def main() -> int:
     print(f"phase 4b tool kernels: {checks - n0} comparisons, all equal",
           flush=True)
 
+    # --- 4c. the per-class inter search and the rough search ----------------
+    n0 = checks
+    l10cfg = ld10_config(Config)
+    ps10 = PartitionSearch(EncoderControl(l10cfg), l10cfg, qp=LD_QP,
+                           is_intra=False)
+    lo, hi = l10cfg.pu_depth_inter
+    # search_combined's inter classes: the depths pu_depth_inter allows
+    me_all = search_classes(ps10)
+    me_cls = [c for c in me_all
+              if lo <= (64 // max(c[0], c[1])).bit_length() - 1 <= hi]
+    pen_me, fpen = me_penalties(qp_to_lambda(LD_QP, False), R, "cuda")
+    print("phase 4c inter classes: " + ", ".join(
+        f"{w}x{h} B={len(p)}" for (w, h, p) in me_cls), flush=True)
+
+    def me_planes(bd):
+        """(reference, source) pairs: frames 0 and 1 of the clip, a flat
+        plane (every offset ties), the checkerboard against itself moved
+        by (5, 3)."""
+        sc = 1 << (bd - 8)
+        flat = torch.full((H, W), ((1 << bd) - 1) // 3, dtype=torch.int32,
+                          device=dev)
+        ck = checker(bd)
+        return {"frame": tuple(torch.from_numpy(frames[i][0] * sc).to(dev)
+                               for i in (0, 1)),
+                "flat": (flat, flat),
+                "edge": (ck, ck.roll((3, 5), (0, 1)).contiguous())}
+
+    def on_card(pos, w, h):
+        return ib.positions_on([p[0] for p in pos], [p[1] for p in pos], w, h,
+                               H, W, dev)
+
+    def me_check(what, ref_p, src_p, xs_d, ys_d, w, h, bd, frac=True):
+        blk = me.windows(src_p, xs_d, ys_d, w, h, 0).to(torch.int32)
+        got = me.fullpel_search(ref_p, blk, xs_d, ys_d, R, pen_me, bd)
+        want = me.fullpel_search_plain(ref_p, blk, xs_d, ys_d, R, pen_me)
+        for o, a, b in zip(("mvx", "mvy", "cost"), got, want):
+            same("fullpel_search", f"{what} {o}", a, b)
+        if frac:
+            a_ = (ref_p, blk, xs_d, ys_d, got[0], got[1], fpen, bd)
+            for o, a, b in zip(("best", "preds", "costs"), me.frac_search(*a_),
+                               me.frac_search_plain(*a_)):
+                same("frac_search", f"{what} {o}", a, b)
+        return blk, got
+
+    for (w, h, pos) in me_cls:
+        xs_d, ys_d = on_card(pos, w, h)
+        for bd in (8, 10):
+            for tag, (ref_p, src_p) in me_planes(bd).items():
+                me_check(f"{w}x{h} {bd}-bit {tag}", ref_p, src_p, xs_d, ys_d,
+                         w, h, bd)
+        # times at the 10-bit frame's inputs, once per class
+        f0, f1 = me_planes(10)["frame"]
+        blk, (mvx, mvy, _c) = me_check(f"{w}x{h} 10-bit frame (timed)", f0,
+                                       f1, xs_d, ys_d, w, h, 10)
+        shape = dict(B=len(pos), w=w, h=h, H_=H, W_=W)
+        timed("fullpel_search",
+              lambda: me.fullpel_search(f0, blk, xs_d, ys_d, R, pen_me, 10),
+              lambda: me.fullpel_search_plain(f0, blk, xs_d, ys_d, R, pen_me),
+              f"{w}x{h} 10-bit", **shape)
+        f_args = (f0, blk, xs_d, ys_d, mvx, mvy, fpen, 10)
+        timed("frac_search", lambda: me.frac_search(*f_args),
+              lambda: me.frac_search_plain(*f_args), f"{w}x{h} 10-bit",
+              **shape)
+        del blk, f_args
+    # K9a's exact sums at their largest: all-max 10-bit planes, every
+    # class (4096 * 1023^2 < 2^32 at 64x64)
+    mx10 = torch.full((H, W), 1023, dtype=torch.int32, device=dev)
+    for (w, h, pos) in me_all:
+        xs_d, ys_d = on_card(pos, w, h)
+        me_check(f"{w}x{h} 10-bit all-max", mx10, mx10, xs_d, ys_d, w, h, 10,
+                 frac=False)
+    # the rough search at every class of the rough path
+    m1 = rough_modes("cuda")
+    rcfg = rough_config(Config)
+    for (w, h, pos) in search_classes(PartitionSearch(EncoderControl(rcfg),
+                                                      rcfg, qp=QP)):
+        B = len(pos)
+        xs = np.array([p[0] for p in pos], dtype=np.int32)
+        ys = np.array([p[1] for p in pos], dtype=np.int32)
+        for bd in (8, 10):
+            tabs = device_tables(w, h, bd, "cuda")
+            for tag, src in class_planes(bd).items():
+                what = f"{w}x{h} {bd}-bit {tag}"
+                refs, blocks = ib.refs_blocks(src, xs, ys, w, h)
+                p1 = ib.predict67(refs, tabs, m1)
+                same("predict67", what + " M=35", p1,
+                     ib.predict67_plain(refs, tabs, m1))
+                s1 = ib.satd67(p1, blocks)
+                for qp in (22, 37):
+                    qps = qp + 6 * (bd - 8)
+                    lam = float(np.float32(qp_to_lambda(qp)))
+                    ft = frame_tables(qp, "cuda")
+                    r_args = (refs, blocks, qps, lam, ft["wts"],
+                              ft["mode_bits"], tabs, bd, m1)
+                    for o, a, b in zip(("best_mode", "rd", "satd_best"),
+                                       rc.rough_refine(*r_args),
+                                       rc.rough_refine_plain(*r_args)):
+                        same("rough_refine", f"{what} qp{qp} {o}", a, b)
+                refine = rc.rough_select(s1, lam, ft["mode_bits"], m1)
+                same("rough_refine", what + " refine", refine,
+                     rc.rough_select_plain(s1, lam, ft["mode_bits"], m1))
+                rand = torch.randint(2, 67, (B, 4), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                rand[0] = torch.tensor([2, 66, 2, 66], dtype=torch.int32)
+                for ltag, ml in (("refine", refine), ("random", rand)):
+                    same("predict_modes", f"{what} {ltag}",
+                         ib.predict_modes(refs, ml, tabs),
+                         ib.predict_modes_plain(refs, ml, tabs))
+        # times at the frame's inputs (8 bits, QP22), once per class
+        tabs = device_tables(w, h, 8, "cuda")
+        ft = frame_tables(QP, "cuda")
+        lam = float(np.float32(qp_to_lambda(QP)))
+        refs, blocks = ib.refs_blocks(frame_src, xs, ys, w, h)
+        r_args = (refs, blocks, QP, lam, ft["wts"], ft["mode_bits"], tabs, 8,
+                  m1)
+        refine = rc.rough_select(ib.satd67(ib.predict67(refs, tabs, m1),
+                                           blocks), lam, ft["mode_bits"], m1)
+        shape = dict(B=B, w=w, h=h, H_=H, W_=W)
+        timed("predict_modes", lambda: ib.predict_modes(refs, refine, tabs),
+              lambda: ib.predict_modes_plain(refs, refine, tabs), f"{w}x{h}",
+              R=4, **shape)
+        timed("rough_refine", lambda: rc.rough_refine(*r_args),
+              lambda: rc.rough_refine_plain(*r_args), f"{w}x{h}", **shape)
+        del refs, blocks, refine, r_args, p1, s1
+    print(f"phase 4c per-class inter and rough kernels: {checks - n0} "
+          "comparisons, all equal", flush=True)
+
     counts = {}
 
     def expect(path, launches, want_counts):
@@ -831,14 +1071,10 @@ def main() -> int:
     # --- 7b. the MIP and MTS paths ------------------------------------------
     mcfg, tcfg = mip_config(Config), mts_config(Config)
     tclip = clip[:TOOL_FRAMES]
-    ps = PartitionSearch(ctrl, cfg, qp=QP)
-    # (w, h) of every class dispatch_blocks / search_blocks is called for
-    tool_classes = list(ps._shapes()) + [
-        ((s_ >> 1), s_) if vert else (s_, (s_ >> 1))
-        for s_ in ps.tt_parents for vert in (False, True)
-        if ps._tt_mid_positions(s_, vert)]
+    # every class dispatch_blocks / search_blocks is called for
+    tool_classes = search_classes(PartitionSearch(ctrl, cfg, qp=QP))
     n_cls = len(tool_classes)
-    n_mts = sum(1 for (w, h) in tool_classes if max(w, h) <= 32)
+    n_mts = sum(1 for (w, h, _p) in tool_classes if max(w, h) <= 32)
     tool_outs = {}
     for path, pcfg, per_frame in (
             ("MIP", mcfg, {"refs_blocks_grid": n_cls, "predict67": n_cls,
@@ -871,6 +1107,96 @@ def main() -> int:
                                                FramePlanes, tclip)),
               flush=True)
 
+    # --- 7c. the per-class inter search and the rough search paths ---------
+    def run_path(path, pcfg, pclip, warm):
+        encode(Encoder(pcfg, device=dev), FramePlanes, pclip[:warm])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        penc = Encoder(pcfg, device=dev)
+        pouts = encode(penc, FramePlanes, pclip)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        native(path, penc)
+        if len(pouts) != len(pclip):
+            fail(f"{path} path returned {len(pouts)} of {len(pclip)} frames")
+        for au, rec, _fs, _refs, _src in pouts:
+            if not au or rec.y.shape != (H, W) or not np.isfinite(rec.y).all():
+                fail(f"{path} path produced an empty AU or a malformed recon")
+        return penc, pouts, pwall, launches
+
+    def combined_counts(penc, pouts, pcfg):
+        """Launches of a configuration whose P/B frames run search_combined
+        per class: search_blocks everywhere (K2, K3, K4, and K11 up to
+        32x32 with MTS), K9a, K9b and K6 per inter class and unique
+        reference, one more K6 per inter class of a B slice (bipred); an I
+        frame without MTS takes the fused all-intra search (K1-K4)."""
+        classes = search_classes(PartitionSearch(penc.ctrl, pcfg, qp=LD_QP))
+        lo_, hi_ = pcfg.pu_depth_inter
+        n_c = len(classes)
+        n_i = sum(1 for (w, h, _p) in classes
+                  if lo_ <= (64 // max(w, h)).bit_length() - 1 <= hi_)
+        n_t = sum(1 for (w, h, _p) in classes if max(w, h) <= 32)
+        mts = pcfg.mts in (1, 3)
+        want = {}
+
+        def add(k, v):
+            want[k] = want.get(k, 0) + v
+        for (_au, _rec, fs, rl, _src) in pouts:
+            if fs.slicetype == SliceType.I and not mts:
+                for k in INTRA_KERNELS:
+                    add(k, n_c)
+                continue
+            for k in ("predict67", "satd67", "rd_cost"):
+                add(k, n_c)
+            if mts:
+                add("mts_search", n_t)
+            if fs.slicetype == SliceType.I:
+                continue
+            is_b = fs.slicetype == SliceType.B
+            rl = rl if isinstance(rl, RefLists) else RefLists.from_single(
+                rl, fs)
+            n_u = len(penc.slice_enc._uniq_refs(rl, is_b)[0])
+            add("fullpel_search", n_i * n_u)
+            add("frac_search", n_i * n_u)
+            add("rd_cost_pred", n_i * (n_u + (1 if is_b and n_u else 0)))
+        return want
+
+    per_class = {}
+    l10cfg = ld10_config(Config)
+    sra_cfg = slow_ra_config(Config)
+    clip10 = clip_for(l10cfg, frames[:LD10_FRAMES])
+    for path, pcfg, pclip, warm in (
+            ("10-bit LD", l10cfg, clip10, 2),
+            ("slow RA", sra_cfg, frames[:RA_FRAMES], 2),
+            ("rough", rcfg, frames[:ROUGH_FRAMES], 1)):
+        penc, pouts, pwall, launches = run_path(path, pcfg, pclip, warm)
+        if path == "rough":
+            n_r = len(search_classes(PartitionSearch(ctrl, rcfg, qp=QP)))
+            want = {k: v * n_r * ROUGH_FRAMES for k, v in (
+                ("refs_blocks", 1), ("predict67", 1), ("satd67", 2),
+                ("predict_modes", 1), ("rough_refine", 2),
+                ("rd_cost_pred", 1))}
+        else:
+            want = combined_counts(penc, pouts, pcfg)
+            if not want.get("fullpel_search"):
+                fail(f"{path} path: no inter class searched")
+        if path == "slow RA" and not any(o[2].slicetype == SliceType.B
+                                         for o in pouts):
+            fail("slow RA path coded no B slice")
+        expect(path, launches, want)
+        per_class[path] = pouts
+        types = "".join(SLICE[o[2].slicetype] for o in pouts)
+        print(f"phase 7c {path} path: {len(pclip)} frames {W}x{H} "
+              f"{pcfg.input_bitdepth}-bit QP{pcfg.qp} ({types}) in "
+              f"{pwall:.3f} s = {len(pclip) / pwall:.3f} fps wall, "
+              f"{sum(len(o[0]) for o in pouts)} bytes, launches "
+              + json.dumps(launches), flush=True)
+        print(busy_share(torch, lambda: encode(Encoder(pcfg, device=dev),
+                                               FramePlanes, pclip)),
+              flush=True)
+
     # --- 8. the card against the CPU ----------------------------------------
     def card_vs_cpu(path, config, got, n, enc_clip):
         ref = encode(Encoder(config, device="cpu"), FramePlanes, enc_clip)
@@ -894,15 +1220,26 @@ def main() -> int:
         fail("dense RA card-vs-CPU clip lacks an I, P or B slice")
     msg.append(card_vs_cpu("MIP", mcfg, tool_outs["MIP"], 1, clip[:1]))
     msg.append(card_vs_cpu("MTS", tcfg, tool_outs["MTS"], 1, clip[:1]))
+    msg.append(card_vs_cpu("10-bit LD", l10cfg, per_class["10-bit LD"], 2,
+                           clip10[:2]))
+    # three frames of the slow-tools RA path: the IDR, POC 2 (P), POC 1 (B)
+    sshort = encode(Encoder(sra_cfg, device=dev), FramePlanes, rclip[:3])
+    if {o[2].slicetype for o in sshort} != {SliceType.I, SliceType.P,
+                                             SliceType.B}:
+        fail("slow RA card-vs-CPU clip lacks an I, P or B slice")
+    msg.append(card_vs_cpu("slow RA", sra_cfg, sshort, 3, rclip[:3]))
+    msg.append(card_vs_cpu("rough", rcfg, per_class["rough"], 1, clip[:1]))
     print("phase 8 card vs CPU byte-identical: " + "; ".join(msg), flush=True)
 
     # --- 9. small clips through the oracle decoder --------------------------
     for label, mk in (("all-intra", bench_config), ("low-delay", ld_config),
                       ("dense RA", dense_config), ("MIP", mip_config),
-                      ("MTS", mts_config)):
+                      ("MTS", mts_config), ("10-bit LD", ld10_config),
+                      ("slow RA", slow_ra_config), ("rough", rough_config)):
         scfg = mk(Config, 192, 128)
         senc = Encoder(scfg, device=dev)
-        sout = encode(senc, FramePlanes, synth_clip(192, 128, 5))
+        sout = encode(senc, FramePlanes,
+                      clip_for(scfg, synth_clip(192, 128, 5)))
         dpb = {}
         for au, rec, fs, _rl, _src in sout:
             pocs0 = [fs.poc - d for d in fs.ref_pocs_neg]

@@ -81,18 +81,18 @@ def test_rdoq_default_byte_identical_to_reference():
     np.testing.assert_array_equal(dec.y, got[0][1].y)
 
 
-# inter slices are ported at 8 bits and without MTS or MIP only: otherwise
-# every device inter path declines and the reference runs the per-class
-# search_combined (item 7b); the rough intra search belongs to that item too
+# once refused: every device inter path declines inter slices above 8 bits,
+# with MTS or with MIP, and the reference then runs the per-class
+# search_combined (tests/test_torch_e2e_combined.py); the rough intra search
 @pytest.mark.parametrize("kw", [dict(gop_len=4, input_bitdepth=10),
                                 dict(intra_period=64, input_bitdepth=10),
                                 dict(gop_len=4, mts=1),
                                 dict(gop_len=4, mip=True),
                                 dict(intra_rough=True)])
-def test_unported_configs_raise(kw):
+def test_formerly_gated_configs_are_accepted(kw):
     cfg = Config(width=64, height=64, **{**TOOLS, **kw})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 7b"):
-        Encoder(cfg, device="cpu")
+    enc = Encoder(cfg, device="cpu")
+    assert enc.slice_enc.device == torch.device("cpu")
 
 
 def test_device_policy():

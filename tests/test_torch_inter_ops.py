@@ -50,12 +50,13 @@ def t(a):
 
 def test_constant_tables_equal_reference():
     """The 'weights' the slice adds: the luma filter (also the copy
-    compiled into csrc/leaf_qpel.cu), the 16x16 DCT2, the quant scales, the
-    mv penalty and the mv bits table."""
+    compiled into csrc/common.cuh, which K8 leaf_qpel.cu and K9b
+    frac_search.cu share), the 16x16 DCT2, the quant scales, the mv penalty
+    and the mv bits table."""
     np.testing.assert_array_equal(inter.LUMA_FILTER, ref_inter.LUMA_FILTER)
-    with open(os.path.join(CSRC, "leaf_qpel.cu")) as fh:
+    with open(os.path.join(CSRC, "common.cuh")) as fh:
         src = fh.read()
-    body = src[src.index("LUMA[16][8] = {"):].split(";")[0]
+    body = src[src.index("kLumaFilter[16][8] = {"):].split(";")[0]
     cu = np.array([int(v) for v in re.findall(r"-?\d+", body)[2:]])
     np.testing.assert_array_equal(cu.reshape(16, 8), ref_inter.LUMA_FILTER)
     np.testing.assert_array_equal(tr.get_matrix(tr.DCT2, 16),

@@ -17,6 +17,7 @@ import torch
 import uvg266_tpu_torch
 from uvg266_tpu_torch import kernels
 from uvg266_tpu_torch.ops import intra_batch as ib
+from uvg266_tpu_torch.ops import me
 from uvg266_tpu_torch.ops import me_frame as mf
 from uvg266_tpu_torch.ops import mip
 from uvg266_tpu_torch.ops import pseudo_recon as pr
@@ -92,8 +93,7 @@ def test_no_import_of_jax_or_the_reference(path):
 
 
 # relative imports of modules the port does not have yet, each reached only
-# under a configuration check_slice_config refuses: none since ops/mip.py
-# was ported
+# under a configuration the port refuses: none since ops/mip.py was ported
 _GATED_MISSING: set = set()
 
 
@@ -158,19 +158,18 @@ def test_relative_imports_resolve(path):
 
 def test_gated_missing_modules_are_still_missing_and_gated():
     """The exception list holds only modules that are really absent (none
-    now: ops.mip resolves), and the configurations that would reach
-    unported code are refused: MIP in inter slices, while all-intra MIP is
-    accepted."""
+    now: ops.mip resolves), and no configuration is refused any more: MIP
+    in inter slices (the per-class search_combined) is accepted as
+    all-intra MIP is."""
     from uvg266_tpu_torch.cfg import Config
-    from uvg266_tpu_torch.control.encoder import check_slice_config
+    from uvg266_tpu_torch.control.encoder import Encoder
     assert not _GATED_MISSING
     for mod in _GATED_MISSING:
         assert not _resolves(mod), f"{mod} exists: drop it from the list"
     assert _resolves("uvg266_tpu_torch.ops.mip")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        check_slice_config(Config(width=64, height=64, gop_len=4, mip=True))
-    check_slice_config(Config(width=64, height=64, gop_len=0, intra_period=1,
-                              mip=True))
+    assert _resolves("uvg266_tpu_torch.ops.me")
+    for kw in (dict(gop_len=4), dict(gop_len=0, intra_period=1)):
+        Encoder(Config(width=64, height=64, mip=True, **kw), device="cpu")
 
 
 def test_wrappers_raise_instead_of_falling_back():
@@ -225,6 +224,32 @@ def test_wrappers_raise_instead_of_falling_back():
                            torch.empty((4, 16), **meta), 22, 57.9,
                            ft["wts"], torch.empty((16,), device="meta"),
                            tabs, 8),
+        # the per-class inter search and the rough search
+        lambda: me.fullpel_search(torch.empty((16, 16), **meta),
+                                  torch.empty((2, 8, 8), **meta),
+                                  torch.empty((2,), **meta),
+                                  torch.empty((2,), **meta), 16,
+                                  torch.empty((1089,), device="meta"), 8),
+        lambda: me.frac_search(*(torch.empty(s_, **meta) for s_ in
+                                 ((16, 16), (2, 8, 8), (2,), (2,), (2,),
+                                  (2,))),
+                               torch.empty((49,), device="meta"), 8),
+        lambda: ib.predict67(torch.empty((4, 780), **meta), tabs,
+                             torch.empty((35,), **meta)),
+        lambda: ib.predict_modes(torch.empty((4, 780), **meta),
+                                 torch.empty((4, 4), **meta), tabs),
+        lambda: rd.rough_select(torch.empty((4, 35), **meta), 57.9,
+                                ft["mode_bits"], torch.empty((35,), **meta)),
+        lambda: rd.rough_pick(torch.empty((4, 35), **meta),
+                              torch.empty((4, 4), **meta),
+                              torch.empty((4, 4), **meta), 57.9,
+                              ft["mode_bits"], torch.empty((35,), **meta),
+                              torch.empty((4, 35, 8, 8), **meta),
+                              torch.empty((4, 4, 8, 8), **meta)),
+        lambda: rd.rough_refine(torch.empty((4, 780), **meta),
+                                torch.empty((4, 8, 8), **meta), 22, 57.9,
+                                ft["wts"], ft["mode_bits"], tabs, 8,
+                                torch.empty((35,), **meta)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no kernel for device"):

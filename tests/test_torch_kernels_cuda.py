@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K8 and K10, K11, K12a against their plain PyTorch
-versions on the card.
+"""The CUDA kernels K1-K12 against their plain PyTorch versions on the
+card.
 
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA card: they
 carry the ``cuda`` marker and skip elsewhere. On the card:
@@ -191,3 +191,71 @@ def test_tool_kernels_equal_plain(card, w, h, bd):
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before
             if kernels.LAUNCHES[k] != before[k]} == n_expect
+
+
+@pytest.mark.parametrize("w,h,bd", [(8, 8, 8), (16, 16, 10), (16, 8, 8),
+                                    (4, 16, 10), (32, 32, 8), (64, 64, 10)])
+def test_me_kernels_equal_plain(card, w, h, bd):
+    """K9a fullpel_search (textured, flat, all-max and edge blocks; the
+    all-max 64x64 10-bit block sums to 4096 * 1023^2 < 2^32) and K9b
+    frac_search at its MVs: every output equal."""
+    from uvg266_tpu_torch.ops import me
+    rng = np.random.default_rng(w * 10 + h + bd)
+    mx = (1 << bd) - 1
+    H, W, r = 2 * h + 40, 3 * w + 40, 16
+    ref = rng.integers(0, mx + 1, (H, W)).astype(np.int32)
+    src = np.roll(ref, (3, 5), (0, 1)).copy()
+    src[:h, W - w:] = mx
+    ref[:h + r, W - w - r:] = mx
+    src[H - h:, W - w:] = mx // 2
+    xs = np.array([0, W - w, 0, W - w, 17, w + 3], dtype=np.int32)
+    ys = np.array([0, 0, H - h, H - h, 9, h + 5], dtype=np.int32)
+    blocks = np.stack([src[y:y + h, x:x + w] for x, y in zip(xs, ys)])
+    pen, fpen = tb.me_penalties(57.9, r, "cuda")
+    rd_, bd_, xd, yd = (_t(a, card) for a in (ref, blocks, xs, ys))
+    before = dict(kernels.LAUNCHES)
+    got = me.fullpel_search(rd_, bd_, xd, yd, r, pen, bd)
+    for a, b in zip(got, me.fullpel_search_plain(rd_, bd_, xd, yd, r, pen)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    mvx, mvy, _c = got
+    fs = me.frac_search(rd_, bd_, xd, yd, mvx, mvy, fpen, bd)
+    for a, b in zip(fs, me.frac_search_plain(rd_, bd_, xd, yd, mvx, mvy, fpen,
+                                             bd)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {
+        "fullpel_search": 1, "frac_search": 1}
+
+
+@pytest.mark.parametrize("w,h,bd", [(4, 4, 8), (8, 8, 10), (16, 16, 8),
+                                    (32, 16, 10), (64, 64, 8)])
+def test_rough_kernels_equal_plain(card, w, h, bd):
+    """K2 at the 35-mode subset, K12b predict_modes (mode lists with 2, 66
+    and duplicates) and the K12c chain with its two selection stages."""
+    rng = np.random.default_rng(w * 7 + h + bd)
+    mx = (1 << bd) - 1
+    B = 9
+    refs = _t(rng.integers(0, mx + 1, (B, 780)).astype(np.int32), card)
+    blocks = _t(rng.integers(0, mx + 1, (B, h, w)).astype(np.int32), card)
+    modes = rng.integers(2, 67, (B, 4)).astype(np.int32)
+    modes[0] = (2, 66, 2, 66)
+    modes = _t(modes, card)
+    tabs = tb.device_tables(w, h, bd, "cuda")
+    m1 = tb.rough_modes("cuda")
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(ib.predict67(refs, tabs, m1),
+                       ib.predict67_plain(refs, tabs, m1))
+    assert torch.equal(ib.predict_modes(refs, modes, tabs),
+                       ib.predict_modes_plain(refs, modes, tabs))
+    for qp in (22, 37):
+        ft = tb.frame_tables(qp, "cuda")
+        args = (refs, blocks, qp + 6 * (bd - 8), 57.9, ft["wts"],
+                ft["mode_bits"], tabs, bd, m1)
+        for a, b in zip(rd.rough_refine(*args), rd.rough_refine_plain(*args)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {
+        "predict67": 3, "predict_modes": 3, "satd67": 4, "rough_refine": 4,
+        "rd_cost_pred": 2}

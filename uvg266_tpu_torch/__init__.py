@@ -4,11 +4,12 @@ Same ``Config``, ``Encoder.feed/flush`` and ``SliceEncoder`` API and the
 same bitstreams as the JAX package ``uvg266_tpu``, which stays the
 reference. The host code (numpy, the g++-built C++ in ``native/``) is a
 copy of the reference's; the device search runs hand-written CUDA kernels
-(``csrc/``, built by ``kernels``). Ported: the all-intra frame search, its
-tool paths (MIP through the per-class dispatch, intra MTS) and the
-low-delay / random-access P and B slices at 8 bits (host ME with the
-device intra screen, or the all-device dense search); the paths still to
-port raise ``NotImplementedError`` naming their ROADMAP.md item.
+(``csrc/``, built by ``kernels``). Every encoder configuration is ported:
+the all-intra frame search, its tool paths (MIP through the per-class
+dispatch, intra MTS, the rough search), the low-delay / random-access P
+and B slices (host ME with the device intra screen, or the all-device
+dense search) and the per-class inter search that inter slices above 8
+bits, with MTS or with MIP run (search_combined).
 
 The port runs on the card unless the caller passes ``device="cpu"``. On
 the CPU every kernel wrapper computes its plain PyTorch version; on a CUDA

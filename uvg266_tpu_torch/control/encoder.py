@@ -12,11 +12,12 @@ unless the caller passes device="cpu" (then their plain PyTorch versions):
 K1-K4 (ops.intra_batch, ops.rd_cost) for the intra candidates of every
 frame, K5 (ops.pseudo_recon) for the P/B intra screen of the host-ME path,
 K6-K8 (ops.rd_cost, ops.me_frame) for the dense inter search and the
-leaf-level quarter-pel refinement, and for the all-intra tool paths the
+leaf-level quarter-pel refinement, for the all-intra tool paths the
 per-class dispatch with K10 (ops.mip) and K12a (ops.intra_batch) for MIP
-and search_blocks with K11 (ops.rd_cost) for intra MTS. Configurations and
-paths not ported yet raise NotImplementedError naming their ROADMAP.md
-item.
+and search_blocks with K11 (ops.rd_cost) for intra MTS, for the rough
+intra search K12a then K12c (ops.rd_cost rough_refine, with K12b), and
+for the per-class inter search (search_combined: inter slices above 8
+bits, with MTS or with MIP) K9a and K9b (ops.me) with K6.
 
 Control flow parity with the reference frame pipeline:
 - uvg_encode_one_frame / encoder_state_encode_leaf
@@ -1310,32 +1311,6 @@ def ibc_bv_valid(x: int, y: int, w: int, h: int, bvx: int, bvy: int,
     return True
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to uvg266_tpu_torch yet: ROADMAP.md, "
-        f"'Modules to port', {item}")
-
-
-_ITEM_7B = "item 7b (search_combined and the rough search, K9, K12b, K12c)"
-
-
-def check_slice_config(cfg) -> None:
-    """Raise for a configuration outside the ported slices: all-intra
-    (with MIP and intra MTS), and low-delay / random-access P and B slices
-    at 8 bits without MTS or MIP."""
-    inter = not (cfg.gop_len == 0 and cfg.intra_period <= 1)
-    # every device inter path needs 8 bits and neither MTS nor MIP; the
-    # reference then runs the per-class search_combined
-    if inter and cfg.input_bitdepth != 8:
-        _not_ported("inter slices at a bit depth other than 8", _ITEM_7B)
-    if inter and cfg.mts in (1, 3):
-        _not_ported("intra MTS (mts in (1, 3)) in inter slices", _ITEM_7B)
-    if inter and cfg.mip:
-        _not_ported("MIP in inter slices", _ITEM_7B)
-    if getattr(cfg, "intra_rough", False):
-        _not_ported("the rough intra search", _ITEM_7B)
-
-
 def _fetch_async(t: torch.Tensor):
     """Start copying a device result to the host; returns fetch() -> the
     numpy array, which waits for that copy alone (not for launches queued
@@ -1412,11 +1387,21 @@ def _get_intra_combo_fn(w: int, h: int, bitdepth: int = 8,
     baked in; without a grid fn(src, xs, ys, qps, lam, wts, mode_bits)
     takes the block origins as host arrays and builds the references with
     K12a (refs_blocks). Both return (best, rd_cost, satd_best) tensors on
-    src's device. rough=True (the two-stage rough+refine search) is not
-    ported."""
-    if rough:
-        _not_ported("the rough intra search", _ITEM_7B)
+    src's device. rough=True (position form only) runs the two-stage
+    rough+refine search instead of K2 -> K3 -> K4: K12a, then K12c
+    (ops.rd_cost rough_refine)."""
     from ..ops.intra_batch import refs_blocks, refs_blocks_grid
+    if rough:
+        from ..ops.rd_cost import rough_refine
+        from ..ops.tables import device_tables, rough_modes
+
+        def combo(src, xs, ys, qps, lam, wts, mode_bits):
+            dev = str(src.device)
+            refs, blocks = refs_blocks(src, xs, ys, w, h)
+            return rough_refine(refs, blocks, qps, lam, wts, mode_bits,
+                                device_tables(w, h, bitdepth, dev), bitdepth,
+                                rough_modes(dev))
+        return combo
     predict, rd = _get_search_fns(w, h, bitdepth)
     if grid is not None:
         def combo(src, qps, lam, wts, mode_bits):
@@ -1737,7 +1722,6 @@ class SliceEncoder:
 
     def __init__(self, cfg, ctrl: EncoderControl, open_loop: bool = True,
                  native_entropy: bool = True, device=None):
-        check_slice_config(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ctrl = ctrl
@@ -1935,14 +1919,169 @@ class SliceEncoder:
                  for k in range(B)]
         return descs, rd_costs
 
+    def _plane_dev(self, plane: np.ndarray) -> torch.Tensor:
+        """A reference plane on the device as int32, uploaded once: the
+        cache holds the host arrays themselves, so that an id cannot be
+        recycled while its entry lives (a frame's planes, a few at a
+        time)."""
+        cache = getattr(self, "_planes_dev", None)
+        if cache is None or len(cache) > 8:
+            cache = self._planes_dev = {}
+        hit = cache.get(id(plane))
+        if hit is None or hit[0] is not plane:
+            hit = cache[id(plane)] = (plane, self._to_device(plane, np.int32))
+        return hit[1]
+
     def search_inter_blocks(self, src_y: np.ndarray, ref_y: np.ndarray,
                             w: int, h: int, positions: list,
                             search_range: int = 16):
-        _not_ported("search_inter_blocks", _ITEM_7B)
+        """Batched full-pel motion search + RD costing for aligned blocks.
+
+        Returns (descs, costs); desc = {'type': 'inter', 'mv': (x16, y16)}
+        with MVs in 1/16-pel units. On the device: K9a (full-pel search
+        over the (2r+1)^2 window), K9b (the 49 quarter-pel offsets around
+        its MV), the winning prediction gathered, its mvd bits gathered
+        from a table, K6 (inter rounding); one copy back of the MVs, the
+        quarter-pel offsets and the costs.
+        """
+        ctrl = self.ctrl
+        from ..ops.intra_batch import positions_on
+        from ..ops.me import frac_search, fullpel_search
+        from ..ops.rd_cost import rd_cost_pred
+        from ..ops.tables import device_mvd_bits, device_tables, me_penalties
+        from .partition import qp_to_lambda
+        r = search_range
+        bd = ctrl.bitdepth
+        dev = str(self.device)
+        qp = self.frame_qp
+        lam = qp_to_lambda(qp, False)
+        pen, fpen = me_penalties(lam, r, dev)
+
+        B = len(positions)
+        blocks = np.empty((B, h, w), dtype=np.int32)
+        for k, (x, y) in enumerate(positions):
+            blocks[k] = src_y[y:y + h, x:x + w]
+        blocks_d = self._to_device(blocks)
+        ref_d = self._plane_dev(ref_y)
+        xs, ys = positions_on([p[0] for p in positions],
+                              [p[1] for p in positions], w, h,
+                              *ref_y.shape, self.device)
+        mvx, mvy, _c = fullpel_search(ref_d, blocks_d, xs, ys, r, pen, bd)
+        # quarter-pel refinement: 7x7 offset grid around the full-pel best
+        best_off, preds, _fc = frac_search(ref_d, blocks_d, xs, ys, mvx, mvy,
+                                           fpen, bd)
+        off = best_off.long()
+        pred = preds[torch.arange(B, device=preds.device), off]
+        # mvd bits of mv16 >> 2 = 4 * full-pel + quarter-pel offset
+        # (k % 7 - 3, k // 7 - 3), gathered from a table indexed from -lim
+        tab = device_mvd_bits(r, dev)
+        lim = 4 * r + 3
+        bits = (tab[4 * mvx.long() + off % 7 - 3 + lim]
+                + tab[4 * mvy.long() + off // 7 - 3 + lim]) + 4.0
+        tabs = frame_tables(qp, dev)
+        costs = rd_cost_pred(pred, blocks_d, ctrl.luma_qp_scaled(qp),
+                             float(np.float32(lam)), tabs["wts"], bits,
+                             device_tables(w, h, bd, dev), bd)
+        vals = _fetch_async(torch.cat(
+            [a.to(torch.float32) for a in (mvx, mvy, best_off, costs)]))() \
+            .reshape(4, B)
+        mvx_h, mvy_h, off_h = (vals[i].astype(np.int64) for i in range(3))
+        descs = [{"type": "inter",
+                  "mv": (int(mvx_h[k]) * 16 + (int(off_h[k]) % 7 - 3) * 4,
+                         int(mvy_h[k]) * 16 + (int(off_h[k]) // 7 - 3) * 4)}
+                 for k in range(B)]
+        return descs, vals[3].copy()
 
     def search_combined(self, src_y, rl, w, h, positions,
                         is_b: bool = False):
-        _not_ported("search_combined", _ITEM_7B)
+        """Inter (multi-ref uni over both lists + bipred) vs intra decision
+        per block (search_cu's mode loop + search_pu_inter bipred,
+        batched)."""
+        # intra candidates are costed against QP-degraded neighbors (the
+        # closed-loop analog: search.c predicts from in-loop recon, which
+        # at high QP is far noisier than the source)
+        cache = getattr(self, "_pseudo_ref", None)
+        qp = self.frame_qp
+        if cache is None or cache[0] is not src_y or cache[1] != qp:
+            from ..ops.pseudo_recon import pseudo_recon_plane
+            plane = pseudo_recon_plane(
+                src_y, self.ctrl.luma_qp_scaled(qp), self.ctrl.bitdepth)
+            self._pseudo_ref = cache = (src_y, qp, plane)
+        d_i, c_i = self.search_blocks(src_y, w, h, positions,
+                                      ref_plane=cache[2])
+        # inter candidates only at sizes the inter depth range allows
+        # (search.c check_can_use_inter: WITHIN(depth, min, max))
+        depth = (LCU_WIDTH // max(w, h)).bit_length() - 1
+        lo, hi = self.cfg.pu_depth_inter
+        if not (lo <= depth <= hi):
+            return d_i, c_i
+        per_ref = []
+        searched = {}
+        for lst, ref_planes in ((0, rl.l0), (1, rl.l1 if is_b else [])):
+            for r, ref in enumerate(ref_planes):
+                key = id(ref)
+                if key in searched:
+                    d_src, c_r = searched[key]
+                    d_r = [dict(dd) for dd in d_src]
+                else:
+                    d_r, c_r = self.search_inter_blocks(src_y, ref.y, w, h,
+                                                        positions)
+                    searched[key] = (d_r, c_r)
+                    d_r = [dict(dd) for dd in d_r]
+                for dd in d_r:
+                    dd["ref"] = r
+                    dd["list"] = lst
+                per_ref.append((lst, r, d_r, c_r))
+        B = len(positions)
+        best_d = list(d_i)
+        best_c = c_i.copy()
+        for lst, r, d_r, c_r in per_ref:
+            for k in range(B):
+                if c_r[k] < best_c[k]:
+                    best_c[k] = c_r[k]
+                    best_d[k] = d_r[k]
+        if is_b and per_ref:
+            # bipred candidate: list-0 best on ref 0 + list-1 best on the
+            # other ref (GPB); hi-precision average prediction on the
+            # host, its RD cost on the device (K6)
+            from ..ops.inter import mc_luma_bi
+            from ..ops.me import mv_bits_est
+            from ..ops.rd_cost import rd_cost_pred
+            from ..ops.tables import device_tables
+            from .partition import qp_to_lambda
+            l0_entries = [(r, d, c) for (lst, r, d, c) in per_ref if lst == 0]
+            l1_entries = [(r, d, c) for (lst, r, d, c) in per_ref if lst == 1]
+            if not l1_entries:
+                l1_entries = l0_entries
+            r0_idx, d0, _c0 = l0_entries[0]
+            r1, d1, _c1 = l1_entries[-1 if len(l1_entries) > 1 else 0]
+            lam = qp_to_lambda(qp, False)
+            pred = np.empty((B, h, w), dtype=np.int32)
+            bits = np.empty(B, dtype=np.float32)
+            blocks = np.empty((B, h, w), dtype=np.int32)
+            for k, (x, y) in enumerate(positions):
+                mv0 = d0[k]["mv"]
+                mv1 = d1[k]["mv"]
+                pred[k] = mc_luma_bi(rl.l0[r0_idx].y, rl.l1[r1].y, x, y, w, h,
+                                     mv0, mv1, self.ctrl.bitdepth)
+                bits[k] = (mv_bits_est(mv0[0] >> 2) + mv_bits_est(mv0[1] >> 2)
+                           + mv_bits_est(mv1[0] >> 2)
+                           + mv_bits_est(mv1[1] >> 2) + 8.0)
+                blocks[k] = src_y[y:y + h, x:x + w]
+            dev = str(self.device)
+            c_bi = _fetch_async(rd_cost_pred(
+                self._to_device(pred), self._to_device(blocks),
+                self.ctrl.luma_qp_scaled(qp), float(np.float32(lam)),
+                frame_tables(qp, dev)["wts"], self._to_device(bits),
+                device_tables(w, h, self.ctrl.bitdepth, dev),
+                self.ctrl.bitdepth))()
+            for k in range(B):
+                if c_bi[k] < best_c[k]:
+                    best_c[k] = c_bi[k]
+                    best_d[k] = {"type": "bi",
+                                 "mv0": d0[k]["mv"], "ref0": r0_idx,
+                                 "mv1": d1[k]["mv"], "ref1": r1}
+        return best_d, best_c
 
     def _dispatch_inter_frame(self, ps, src_y: np.ndarray, rl, fs,
                               pretoken=None):
@@ -3776,7 +3915,6 @@ class Encoder:
     random-access B-pyramid (GOP8)."""
 
     def __init__(self, cfg, device=None):
-        check_slice_config(cfg)
         self.cfg = cfg
         self.ctrl = EncoderControl(cfg)
         self.slice_enc = SliceEncoder(cfg, self.ctrl, device=device)

@@ -8,9 +8,8 @@
 //
 // 1. per tile and per offset k in 0..48, (dx, dy) = (k % 7 - 3, k / 7 - 3)
 //    quarter-pel: the 8-tap luma interpolation of ops.me
-//    make_frac_search_fn (horizontal pass over 15 rows, >> (bd - 8) above
-//    8 bits; vertical pass, >> 6, weighted-prediction rounding by 14 - bd,
-//    clip), or the window itself at offset (0, 0); then the 8x8 Hadamard
+//    make_frac_search_fn (common.cuh qpel_sample, shared with K9b
+//    frac_search.cu), or the window itself at offset (0, 0); then the 8x8 Hadamard
 //    SATD of the difference: s = sum |H d H|, s - dc + (dc >> 2), then
 //    (s + 2) >> 2, into an int32 scratch [nt, 49].
 // 2. per leaf: seg[l][k] = float32 sum of its tiles' SATDs, in tile order
@@ -37,20 +36,6 @@ namespace {
 
 constexpr int WIN = 18, PAD = 5, TL = 8, NOFF = 49;
 
-__constant__ int LUMA[16][8] = {
-    {0, 0, 0, 64, 0, 0, 0, 0},        {0, 1, -3, 63, 4, -2, 1, 0},
-    {-1, 2, -5, 62, 8, -3, 1, 0},     {-1, 3, -8, 60, 13, -4, 1, 0},
-    {-1, 4, -10, 58, 17, -5, 1, 0},   {-1, 4, -11, 52, 26, -8, 3, -1},
-    {-1, 3, -9, 47, 31, -10, 4, -1},  {-1, 4, -11, 45, 34, -10, 4, -1},
-    {-1, 4, -11, 40, 40, -11, 4, -1}, {-1, 4, -10, 34, 45, -11, 4, -1},
-    {-1, 4, -10, 31, 47, -9, 3, -1},  {-1, 3, -8, 26, 52, -11, 4, -1},
-    {0, 1, -5, 17, 58, -10, 4, -1},   {0, 1, -4, 13, 60, -8, 3, -1},
-    {0, 1, -3, 8, 62, -5, 2, -1},     {0, 1, -2, 4, 63, -3, 1, 0}};
-
-__device__ __forceinline__ int had(int a, int b) {   // Sylvester Hadamard sign
-  return (__popc(a & b) & 1) ? -1 : 1;
-}
-
 __global__ void tile_satd49_kernel(const int* __restrict__ windows,
                                    const int* __restrict__ blocks, int bitdepth,
                                    int* __restrict__ satd) {
@@ -61,8 +46,6 @@ __global__ void tile_satd49_kernel(const int* __restrict__ windows,
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;            // 64 threads: sample (i, j)
   const int i = tid / TL, j = tid % TL;
-  const int max_pix = (1 << bitdepth) - 1;
-  const int wp_shift = 14 - bitdepth;
   for (int q = tid; q < WIN * WIN; q += TL * TL)
     win[q] = windows[static_cast<long long>(tile) * WIN * WIN + q];
   const int src = blocks[static_cast<long long>(tile) * TL * TL + tid];
@@ -70,35 +53,20 @@ __global__ void tile_satd49_kernel(const int* __restrict__ windows,
   for (int k = 0; k < NOFF; ++k) {
     const int ox = 4 * (k % 7 - 3), oy = 4 * (k / 7 - 3);
     const int ix = ox >> 4, iy = oy >> 4, fx = ox & 15, fy = oy & 15;
-    int pred;
-    if (fx == 0 && fy == 0) {
-      pred = win[(PAD + iy + i) * WIN + PAD + ix + j];
-    } else {
-      int out = 0;
-      for (int v = 0; v < 8; ++v) {
-        const int* row = win + (PAD + iy - 3 + i + v) * WIN + PAD + ix - 3 + j;
-        int hor = 0;
-#pragma unroll
-        for (int u = 0; u < 8; ++u) hor += LUMA[fx][u] * row[u];
-        if (bitdepth > 8) hor >>= bitdepth - 8;
-        out += LUMA[fy][v] * hor;
-      }
-      out >>= 6;
-      out = (out + (1 << (wp_shift - 1))) >> wp_shift;
-      pred = uvg::clampi(out, 0, max_pix);
-    }
+    const int pred = uvg::qpel_sample(win + (PAD + iy + i) * WIN + PAD + ix + j,
+                                      WIN, fx, fy, bitdepth);
     d[tid] = src - pred;
     __syncthreads();
     // rows: t[i][j] = sum_c d[i][c] * H[c][j]
     int acc = 0;
 #pragma unroll
-    for (int c = 0; c < TL; ++c) acc += had(c, j) * d[i * TL + c];
+    for (int c = 0; c < TL; ++c) acc += uvg::had_sign(c, j) * d[i * TL + c];
     t[tid] = acc;
     __syncthreads();
     // columns: u[i][j] = sum_c H[i][c] * t[c][j]
     acc = 0;
 #pragma unroll
-    for (int c = 0; c < TL; ++c) acc += had(i, c) * t[c * TL + j];
+    for (int c = 0; c < TL; ++c) acc += uvg::had_sign(i, c) * t[c * TL + j];
     const int a = abs(acc);
     int s = a;
     for (int o = 16; o >= 1; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);

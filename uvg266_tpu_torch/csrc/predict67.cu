@@ -1,14 +1,15 @@
-// K2 predict67: all 67 intra prediction modes of every block of a class.
+// K2 predict67: all 67 intra prediction modes of every block of a class,
+// or the M modes of a subset whose slots 0 and 1 are planar and DC (the
+// rough search's stage 1, M = 35: the reference's make_predict_fn over
+// slice_mode_tables(tables, [0, 1, 2, 4, ..., 66])).
 //
 // Replaces: uvg266_tpu/ops/intra_batch.py:420 make_predict_matmul_fn (the
 // bit-exact twin of the gather form make_predict_fn, :276). The TPU form
 // multiplies the packed references by a dense float32 matrix A
 // [4*REF_LEN, 67*h*w] (856 MB at 64x64); here the angular modes gather
 // straight from the static tables instead:
-//   ang = (sum_t refs[K[m,p,t]] * W[m,p,t] + 32) >> 6, clipped where
-//   needs_clip; gradient PDPC ang += (wl*(side - ang) + 32) >> 6 where
-//   pdpc_on; hor/ver PDPC clip(ang + (wl*(side - topleft) + 32) >> 6)
-//   where hv_on; planar (filtered references when w*h > 32) and DC, each
+//   the angular sample of common.cuh angular_sample (shared with K12b);
+//   planar (filtered references when w*h > 32) and DC, each
 //   with the position-dependent PDPC, then a clip (make_predict_matmul_fn
 //   :467-513). Products are < 2^20, so int32 is exact.
 //
@@ -28,33 +29,27 @@
 namespace {
 
 struct Tables {
-  const short4* K;            // [67, h*w] x 4 taps
-  const char4* W;             // [67, h*w] x 4 weights
-  const int8_t* pdpc_wl;      // [67, h*w]
-  const int16_t* pdpc_sidx;   // [67, h*w]
-  const int8_t* hv_wl;        // [67, h*w]
-  const int16_t* hv_sidx;     // [67, h*w]
-  const uint8_t* needs_clip;  // [67]
-  const uint8_t* pdpc_on;     // [67]
-  const uint8_t* hv_on;       // [67]
-  const int16_t* hv_topleft;  // [67]
+  uvg::AngTables ang;
   const int* pd_wl;           // [w]
   const int* pd_wt;           // [h]
 };
 
 struct Shape {
-  int w, h, log2_w, log2_h, max_pix, modes_per_block;
+  int w, h, log2_w, log2_h, max_pix, M, modes_per_block;
   bool planar_filtered, apply_pd;
 };
 
+// modes: the mode of each of the M output slots (slots 0 and 1 planar and
+// DC), or null for all 67 modes in order
 __global__ void predict67_kernel(const int* __restrict__ refs, Tables t,
-                                 Shape s, int* __restrict__ preds) {
+                                 const int* __restrict__ modes, Shape s,
+                                 int* __restrict__ preds) {
   __shared__ int r[uvg::NREF];
   __shared__ int dc_s;
   const int cu = blockIdx.x;
   const int hw = s.w * s.h;
   const int m0 = blockIdx.y * s.modes_per_block;
-  const int m1 = min(m0 + s.modes_per_block, uvg::NUM_MODES);
+  const int m1 = min(m0 + s.modes_per_block, s.M);
   const int* rg = refs + static_cast<long long>(cu) * uvg::NREF;
   for (int i = threadIdx.x; i < uvg::NREF; i += blockDim.x) r[i] = rg[i];
   __syncthreads();
@@ -70,27 +65,17 @@ __global__ void predict67_kernel(const int* __restrict__ refs, Tables t,
   __syncthreads();
   const int psec_t = s.planar_filtered ? 2 : 0;
   const int psec_l = s.planar_filtered ? 3 : 1;
-  int* out = preds + static_cast<long long>(cu) * uvg::NUM_MODES * hw;
+  int* out = preds + static_cast<long long>(cu) * s.M * hw;
   for (int e = m0 * hw + threadIdx.x; e < m1 * hw; e += blockDim.x) {
-    const int mode = e / hw;
-    const int p = e - mode * hw;
+    const int slot = e / hw;
+    const int p = e - slot * hw;
+    const int mode = modes == nullptr ? slot : uvg::clampi(modes[slot], 0, 66);
     const int y = p >> s.log2_w;
     const int x = p & (s.w - 1);
     int v;
     if (mode >= 2) {
-      const short4 k = t.K[e];
-      const char4 wt = t.W[e];
-      v = (r[k.x] * wt.x + r[k.y] * wt.y + r[k.z] * wt.z + r[k.w] * wt.w + 32) >> 6;
-      if (t.needs_clip[mode]) v = uvg::clampi(v, 0, s.max_pix);
-      if (t.pdpc_on[mode]) {
-        const int side = r[t.pdpc_sidx[e]];
-        v = v + ((t.pdpc_wl[e] * (side - v) + 32) >> 6);
-      }
-      if (t.hv_on[mode]) {
-        const int side = r[t.hv_sidx[e]];
-        const int tl = r[t.hv_topleft[mode]];
-        v = uvg::clampi(v + ((t.hv_wl[e] * (side - tl) + 32) >> 6), 0, s.max_pix);
-      }
+      v = uvg::angular_sample(r, t.ang, mode, static_cast<long long>(mode) * hw + p,
+                              s.max_pix);
     } else {
       int tsec, lsec;
       if (mode == 0) {
@@ -120,12 +105,6 @@ __global__ void predict67_kernel(const int* __restrict__ refs, Tables t,
   }
 }
 
-int log2i(int v) {
-  int l = 0;
-  while ((1 << l) < v) ++l;
-  return l;
-}
-
 }  // namespace
 
 extern "C" int predict67(const void* refs, int B, int w, int h, int max_pix,
@@ -134,22 +113,26 @@ extern "C" int predict67(const void* refs, int B, int w, int h, int max_pix,
                          const void* hv_sidx, const void* needs_clip,
                          const void* pdpc_on, const void* hv_on,
                          const void* hv_topleft, const void* pd_wl,
-                         const void* pd_wt, void* preds, void* stream) {
-  Tables t{static_cast<const short4*>(K), static_cast<const char4*>(W),
-           static_cast<const int8_t*>(pdpc_wl), static_cast<const int16_t*>(pdpc_sidx),
-           static_cast<const int8_t*>(hv_wl), static_cast<const int16_t*>(hv_sidx),
-           static_cast<const uint8_t*>(needs_clip), static_cast<const uint8_t*>(pdpc_on),
-           static_cast<const uint8_t*>(hv_on), static_cast<const int16_t*>(hv_topleft),
+                         const void* pd_wt, const void* modes, int M,
+                         void* preds, void* stream) {
+  Tables t{{static_cast<const short4*>(K), static_cast<const char4*>(W),
+            static_cast<const int8_t*>(pdpc_wl), static_cast<const int16_t*>(pdpc_sidx),
+            static_cast<const int8_t*>(hv_wl), static_cast<const int16_t*>(hv_sidx),
+            static_cast<const uint8_t*>(needs_clip), static_cast<const uint8_t*>(pdpc_on),
+            static_cast<const uint8_t*>(hv_on), static_cast<const int16_t*>(hv_topleft)},
            static_cast<const int*>(pd_wl), static_cast<const int*>(pd_wt)};
   const int hw = w * h;
+  if (modes == nullptr) M = uvg::NUM_MODES;
+  if (M < 2 || M > uvg::NUM_MODES) return static_cast<int>(cudaErrorInvalidValue);
   // about 2048 outputs per thread block: one mode at 64x64, 32 at 8x8
-  const int mpb = std::max(1, std::min(uvg::NUM_MODES, 2048 / hw));
-  Shape s{w, h, log2i(w), log2i(h), max_pix, mpb,
+  const int mpb = std::max(1, std::min(M, 2048 / hw));
+  Shape s{w, h, uvg::log2i(w), uvg::log2i(h), max_pix, M, mpb,
           w * h > 32, w >= 4 && h >= 4};
   if (B <= 0) return static_cast<int>(cudaSuccess);
-  dim3 grid(B, (uvg::NUM_MODES + mpb - 1) / mpb);
+  dim3 grid(B, (M + mpb - 1) / mpb);
   predict67_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(refs), t, s, static_cast<int*>(preds));
+      static_cast<const int*>(refs), t, static_cast<const int*>(modes), s,
+      static_cast<int*>(preds));
   return static_cast<int>(cudaGetLastError());
 }
 

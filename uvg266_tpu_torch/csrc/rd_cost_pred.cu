@@ -1,7 +1,8 @@
 // K6 rd_cost_pred: rate-distortion cost of one given prediction per block.
 //
 // Replaces: uvg266_tpu/ops/rd_cost.py:24 make_rd_cost_pred_fn (the inter
-// path's cost, is_intra_slice=False: quant rounding 85). Per block:
+// path's cost, quant rounding 85, and the rough intra search's RD tail,
+// rounding 171: the wrapper passes the rounding in `add`). Per block:
 //   bits, ssd = the RD tail (common.cuh rd_tail_block) of pred
 //   rd        = float(ssd) + lam * (bits + extra_bits[b])
 // with the same int32 wrapping, IEEE float rounding and order-free bits

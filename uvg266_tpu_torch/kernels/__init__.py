@@ -40,8 +40,9 @@ SIGNATURES = {
     "refs_blocks_grid": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P],
     # refs, B, w, h, max_pix, K, W, pdpc_wl, pdpc_sidx, hv_wl, hv_sidx,
-    # needs_clip, pdpc_on, hv_on, hv_topleft, pd_wl, pd_wt, preds
-    "predict67": [_P, _I, _I, _I, _I] + [_P] * 13 + [_P],
+    # needs_clip, pdpc_on, hv_on, hv_topleft, pd_wl, pd_wt, modes (or
+    # null), M, preds
+    "predict67": [_P, _I, _I, _I, _I] + [_P] * 12 + [_P, _I, _P] + [_P],
     # preds, src, B, M, w, h, out
     "satd67": [_P, _P, _I, _I, _I, _I, _P, _P],
     # preds, src, satds, B, M, w, h, mat_w, mat_h, wts, mode_bits,
@@ -68,6 +69,19 @@ SIGNATURES = {
                    _I, _F, _P, _P, _P, _P],
     # src, H, W, xs, ys, B, w, h, refs, blocks
     "refs_blocks": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    # ref, H, W, blocks, xs, ys, B, w, h, r, pen, mvx, mvy, cost
+    "fullpel_search": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                       _P],
+    # ref, H, W, blocks, xs, ys, mvx, mvy, B, w, h, bitdepth, fpen, best,
+    # preds, costs
+    "frac_search": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                    _P, _P, _P],
+    # refs, modes, B, R, w, h, max_pix, K, W, pdpc_wl, pdpc_sidx, hv_wl,
+    # hv_sidx, needs_clip, pdpc_on, hv_on, hv_topleft, preds
+    "predict_modes": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 10 + [_P, _P],
+    # stage, B, n1, hw, lam, s1, s2, refine, mode_bits, m1, p1, p2,
+    # best_mode, satd_best, extra, pred
+    "rough_refine": [_I, _I, _I, _I, _F] + [_P] * 11 + [_P],
 }
 # kernels whose C entry lives in another kernel's source
 SOURCE = {"refs_blocks": "refs_blocks_grid"}

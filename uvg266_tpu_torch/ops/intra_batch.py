@@ -10,11 +10,15 @@ that launches the hand-written CUDA kernel (csrc/) for tensors on the card:
   position grid, the references optionally from a separate plane
   (reference: make_refs_blocks_grid_fn and its ``refsrc``);
 - K2 ``predict67``: all 67 modes (reference: make_predict_matmul_fn, the
-  bit-exact twin of the gather form make_predict_fn);
+  bit-exact twin of the gather form make_predict_fn), or a mode subset
+  starting with planar and DC (make_predict_fn over slice_mode_tables: the
+  rough search's 35 stage-1 modes);
 - K3 ``satd67``: per-candidate SATD, for any candidate count (reference:
   make_satd67_fn);
 - K12a ``refs_blocks``: K1 at block origins given as arrays, off any grid
-  (reference: make_refs_blocks_fn).
+  (reference: make_refs_blocks_fn);
+- K12b ``predict_modes``: angular predictions for a mode list per block
+  (reference: make_predict_modes_fn).
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel or raises. Nothing falls back from one to the other.
@@ -504,10 +508,26 @@ def refs_blocks(src: torch.Tensor, xs, ys, w: int, h: int):
     return refs, blocks
 
 
-def predict67_plain(refs: torch.Tensor, tables: dict) -> torch.Tensor:
+# the per-mode tables of the angular modes, in the kernels' argument order
+_ANG_KEYS = ("K", "W", "pdpc_wl", "pdpc_sidx", "hv_wl", "hv_sidx",
+             "needs_clip", "pdpc_on", "hv_on", "hv_topleft")
+
+
+def predict67_plain(refs: torch.Tensor, tables: dict,
+                    modes: torch.Tensor | None = None) -> torch.Tensor:
     """K2, plain version: refs [B, 4*REF_LEN] int32 -> [B, 67, h, w] int32
     predictions, with make_predict_fn's gather arithmetic. ``tables`` is
-    ops.tables.device_tables(w, h, bitdepth, device)."""
+    ops.tables.device_tables(w, h, bitdepth, device). ``modes`` [M] int32,
+    when given, restricts the output to those modes in that order; it must
+    start with 0, 1 (planar and DC), as slice_mode_tables requires."""
+    if modes is not None:
+        ml = modes.tolist()
+        if ml[:2] != [0, 1] or min(ml) < 0 or max(ml) >= NUM_MODES:
+            raise ValueError("predict67: a mode subset starts with 0, 1 and "
+                             "lists modes 0..66")
+        idx = modes.long()
+        tables = {**tables, **{k: tables[k][idx] for k in _ANG_KEYS}}
+    M = tables["K"].shape[0]
     w, h = tables["w"], tables["h"]
     log2_w, log2_h = tables["log2_w"], tables["log2_h"]
     max_pix = (1 << tables["bitdepth"]) - 1
@@ -530,10 +550,10 @@ def predict67_plain(refs: torch.Tensor, tables: dict) -> torch.Tensor:
     dev = refs.device
     xs1 = torch.arange(1, w + 1, dtype=torch.int32, device=dev)[None, None, :]
     ys1 = torch.arange(1, h + 1, dtype=torch.int32, device=dev)[None, :, None]
-    out = torch.empty((refs.shape[0], NUM_MODES, h, w), dtype=torch.int32,
+    out = torch.empty((refs.shape[0], M, h, w), dtype=torch.int32,
                       device=dev)
 
-    for sl in _chunks(refs.shape[0], NUM_MODES * h * w * 4):
+    for sl in _chunks(refs.shape[0], M * h * w * 4):
         r = refs[sl]
         ang = (r[:, K] * Wt).sum(-1, dtype=torch.int32)
         ang = (ang + 32) >> 6
@@ -580,22 +600,89 @@ def predict67_plain(refs: torch.Tensor, tables: dict) -> torch.Tensor:
     return out
 
 
-def predict67(refs: torch.Tensor, tables: dict) -> torch.Tensor:
-    """K2: predict67_plain on the CPU, the CUDA kernel on the card."""
+def predict67(refs: torch.Tensor, tables: dict,
+              modes: torch.Tensor | None = None) -> torch.Tensor:
+    """K2: predict67_plain on the CPU, the CUDA kernel on the card. On the
+    card a mode subset ``modes`` is not read back to be checked: it must
+    start with 0, 1 and list modes 0..66."""
     if refs.device.type == "cpu":
-        return predict67_plain(refs, tables)
-    keys = ("K", "W", "pdpc_wl", "pdpc_sidx", "hv_wl", "hv_sidx",
-            "needs_clip", "pdpc_on", "hv_on", "hv_topleft", "pd_wl", "pd_wt")
-    dev = kernels.check_cuda("predict67", refs, *(tables[k] for k in keys))
+        return predict67_plain(refs, tables, modes)
+    keys = _ANG_KEYS + ("pd_wl", "pd_wt")
+    dev = kernels.check_cuda("predict67", refs, *(tables[k] for k in keys),
+                             *(() if modes is None else (modes,)))
     _check("predict67", refs, torch.int32, 2)
     if refs.shape[1] != 4 * REF_LEN:
         raise ValueError(f"predict67: refs must be [B, {4 * REF_LEN}]")
+    M = NUM_MODES
+    if modes is not None:
+        _check("predict67", modes, torch.int32, 1)
+        M = modes.shape[0]
+        if not 2 <= M <= NUM_MODES:
+            raise ValueError("predict67: a mode subset has 2..67 modes")
     w, h = tables["w"], tables["h"]
     B = refs.shape[0]
-    preds = torch.empty((B, NUM_MODES, h, w), dtype=torch.int32, device=dev)
+    preds = torch.empty((B, M, h, w), dtype=torch.int32, device=dev)
     kernels.launch("predict67", dev, refs.data_ptr(), B, w, h,
                    (1 << tables["bitdepth"]) - 1,
-                   *(tables[k].data_ptr() for k in keys), preds.data_ptr())
+                   *(tables[k].data_ptr() for k in keys),
+                   None if modes is None else modes.data_ptr(), M,
+                   preds.data_ptr())
+    return preds
+
+
+def predict_modes_plain(refs: torch.Tensor, modes: torch.Tensor,
+                        tables: dict) -> torch.Tensor:
+    """K12b, plain version: refs [B, 4*REF_LEN], modes [B, R] int32 in
+    [2, 66] (duplicates allowed; a mode outside is clamped into it) ->
+    [B, R, h, w] int32 angular predictions, make_predict_modes_fn's
+    arithmetic (per block, the tables of its own modes)."""
+    w, h = tables["w"], tables["h"]
+    max_pix = (1 << tables["bitdepth"]) - 1
+    B, R = modes.shape
+    m = modes.long().clamp(2, NUM_MODES - 1)
+    out = torch.empty((B, R, h, w), dtype=torch.int32, device=refs.device)
+    for sl in _chunks(B, R * h * w * 4):
+        r, ms = refs[sl], m[sl]
+        b = torch.arange(r.shape[0], device=r.device)
+        b4 = b[:, None, None, None, None]
+        ang = (r[b4, tables["K"].long()[ms]] * tables["W"].int()[ms]).sum(
+            -1, dtype=torch.int32)
+        ang = (ang + 32) >> 6
+        fl = (slice(None), slice(None), None, None)
+        ang = torch.where(tables["needs_clip"][ms][fl],
+                          ang.clamp(0, max_pix), ang)
+        b3 = b[:, None, None, None]
+        side = r[b3, tables["pdpc_sidx"].long()[ms]]
+        ang = torch.where(tables["pdpc_on"][ms][fl],
+                          ang + ((tables["pdpc_wl"].int()[ms] * (side - ang)
+                                  + 32) >> 6), ang)
+        side_hv = r[b3, tables["hv_sidx"].long()[ms]]
+        topleft = r[b[:, None], tables["hv_topleft"].long()[ms]][fl]
+        corr_hv = (tables["hv_wl"].int()[ms] * (side_hv - topleft) + 32) >> 6
+        out[sl] = torch.where(tables["hv_on"][ms][fl],
+                              (ang + corr_hv).clamp(0, max_pix), ang)
+    return out
+
+
+def predict_modes(refs: torch.Tensor, modes: torch.Tensor,
+                  tables: dict) -> torch.Tensor:
+    """K12b: predict_modes_plain on the CPU, the CUDA kernel on the card."""
+    if refs.device.type == "cpu":
+        return predict_modes_plain(refs, modes, tables)
+    dev = kernels.check_cuda("predict_modes", refs, modes,
+                             *(tables[k] for k in _ANG_KEYS))
+    _check("predict_modes", refs, torch.int32, 2)
+    _check("predict_modes", modes, torch.int32, 2)
+    B, R = modes.shape
+    if tuple(refs.shape) != (B, 4 * REF_LEN):
+        raise ValueError(f"predict_modes: refs must be [B, {4 * REF_LEN}] "
+                         "for modes [B, R]")
+    w, h = tables["w"], tables["h"]
+    preds = torch.empty((B, R, h, w), dtype=torch.int32, device=dev)
+    kernels.launch("predict_modes", dev, refs.data_ptr(), modes.data_ptr(),
+                   B, R, w, h, (1 << tables["bitdepth"]) - 1,
+                   *(tables[k].data_ptr() for k in _ANG_KEYS),
+                   preds.data_ptr())
     return preds
 
 

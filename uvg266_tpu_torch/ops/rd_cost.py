@@ -12,10 +12,14 @@ card. It takes the per-mode SATDs of K3 (ops.intra_batch.satd67) as an
 input; ``satd67`` followed by ``rd_cost`` is the reference's
 make_rd_cost_fn. K6 ``rd_cost_pred`` (csrc/rd_cost_pred.cu, the
 reference's make_rd_cost_pred_fn) costs one given prediction per block,
-with inter rounding and extra bits. K11 ``mts_search``
-(csrc/mts_search.cu, the reference's make_mts_search_fn) costs one given
-prediction under each of the five MTS transform pairs and picks the
-first minimum. All three share the RD tail.
+with the quant rounding of an inter (default) or intra slice and extra
+bits. K11 ``mts_search`` (csrc/mts_search.cu, the reference's
+make_mts_search_fn) costs one given prediction under each of the five MTS
+transform pairs and picks the first minimum. All three share the RD tail.
+K12c ``rough_refine`` (the reference's make_rough_refine_fn, the rough
+intra search) is a chain: K2 over the 35 stage-1 modes, K3, the stage-1
+selection (csrc/rough_refine.cu), K12b over the 4 refine modes, K3, the
+stage-2 selection (the same source), K6 on the winner.
 
 Both versions compute in int32 where the reference does (x64 off: its
 int64 casts are int32), wrapping on overflow as it does. The bits estimate
@@ -169,13 +173,14 @@ def rd_cost(preds, src, satds, qp: int, lam: float, wts, mode_bits,
 
 
 def rd_cost_pred_plain(pred, src, qp: int, lam: float, wts, extra_bits,
-                       tables: dict, bitdepth: int):
+                       tables: dict, bitdepth: int,
+                       is_intra_slice: bool = False):
     """K6, plain version: the RD cost of one given prediction per block
-    (the inter path, quant rounding 85). pred, src [B, h, w] int32; wts
-    [4], extra_bits [B] float32 -> rd [B] float32 =
+    (quant rounding 85, or 171 with is_intra_slice). pred, src [B, h, w]
+    int32; wts [4], extra_bits [B] float32 -> rd [B] float32 =
     ssd + lam * (bits + extra_bits)."""
     B, h, w = pred.shape
-    c = quant_consts(w, h, bitdepth, qp, is_intra_slice=False)
+    c = quant_consts(w, h, bitdepth, qp, is_intra_slice)
     dev = pred.device
     lam32 = torch.tensor(np.float32(lam), device=dev)
     bits = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -190,11 +195,11 @@ def rd_cost_pred_plain(pred, src, qp: int, lam: float, wts, extra_bits,
 
 
 def rd_cost_pred(pred, src, qp: int, lam: float, wts, extra_bits,
-                 tables: dict, bitdepth: int):
+                 tables: dict, bitdepth: int, is_intra_slice: bool = False):
     """K6: rd_cost_pred_plain on the CPU, the CUDA kernel on the card."""
     if pred.device.type == "cpu":
         return rd_cost_pred_plain(pred, src, qp, lam, wts, extra_bits,
-                                  tables, bitdepth)
+                                  tables, bitdepth, is_intra_slice)
     dev = kernels.check_cuda("rd_cost_pred", pred, src, wts, extra_bits,
                              tables["mat_w"], tables["mat_h"])
     B, h, w = pred.shape
@@ -204,7 +209,7 @@ def rd_cost_pred(pred, src, qp: int, lam: float, wts, extra_bits,
             or extra_bits.dtype != torch.float32):
         raise ValueError("rd_cost_pred: expects int32 pred, src [B, h, w] "
                          "and float32 wts, extra_bits [B]")
-    c = quant_consts(w, h, bitdepth, qp, is_intra_slice=False)
+    c = quant_consts(w, h, bitdepth, qp, is_intra_slice)
     rd = torch.empty((B,), dtype=torch.float32, device=dev)
     kernels.launch("rd_cost_pred", dev, pred.data_ptr(), src.data_ptr(),
                    extra_bits.data_ptr(), B, w, h, tables["mat_w"].data_ptr(),
@@ -281,3 +286,148 @@ def mts_search(pred, src, qp: int, lam: float, wts, mts: dict,
                    c["dq_shift"], float(lam), tr.data_ptr(), cost.data_ptr(),
                    dc_only.data_ptr())
     return tr, cost, dc_only
+
+
+# --- K12c: the rough intra search ---------------------------------------
+
+def _rough_costs(satds, lam32, mode_bits, modes):
+    """float32(satd) + sqrt(lam) * mode_bits[mode], the multiply and the
+    add rounded separately (make_rough_refine_fn's c1 and c2)."""
+    return satds.to(torch.float32) + torch.sqrt(lam32) * mode_bits[modes.long()]
+
+
+def rough_select_plain(s1, lam: float, mode_bits, m1):
+    """K12c stage 1, plain version: s1 [B, 35] int32 SATDs of the modes m1
+    [35] int32 -> refine [B, 4] int32 = clip([a1-1, a1+1, a2-1, a2+1], 2,
+    66), a1 and a2 the two best even angular modes (the first minimum over
+    c1[2:], then with that cost raised by 1e30)."""
+    lam32 = torch.tensor(np.float32(lam), device=s1.device)
+    ang = _rough_costs(s1, lam32, mode_bits, m1)[:, 2:]
+    i1 = torch.argmin(ang, dim=1)
+    masked = ang.clone()
+    rows = torch.arange(ang.shape[0], device=ang.device)
+    masked[rows, i1] = ang[rows, i1] + np.float32(1e30)
+    i2 = torch.argmin(masked, dim=1)
+    a1, a2 = 2 + 2 * i1, 2 + 2 * i2
+    return torch.stack([a1 - 1, a1 + 1, a2 - 1, a2 + 1], dim=1) \
+        .clamp(2, 66).to(torch.int32)
+
+
+def rough_pick_plain(s1, s2, refine, lam: float, mode_bits, m1, p1, p2):
+    """K12c stage 2, plain version: the first minimum k over the 39 costs
+    [c1 | c2] of the stage-1 modes m1 (SATDs s1 [B, 35], predictions p1
+    [B, 35, h, w]) and the refine modes (s2, refine [B, 4], p2 [B, 4, h,
+    w]) -> (best_mode [B] int32, satd_best [B] int32, extra [B] float32 =
+    mode_bits[best_mode], pred [B, h, w] int32 the winning prediction)."""
+    B = s1.shape[0]
+    lam32 = torch.tensor(np.float32(lam), device=s1.device)
+    all_c = torch.cat([_rough_costs(s1, lam32, mode_bits, m1[None]),
+                       _rough_costs(s2, lam32, mode_bits, refine)], dim=1)
+    k = torch.argmin(all_c, dim=1)                 # stage-1 slots win ties
+    rows = torch.arange(B, device=s1.device)
+    n1 = s1.shape[1]
+    modes = torch.cat([m1[None].expand(B, n1), refine], dim=1)
+    best_mode = modes[rows, k]
+    satd_best = torch.cat([s1, s2], dim=1)[rows, k]
+    pred = torch.where((k < n1)[:, None, None],
+                       p1[rows, k.clamp(max=n1 - 1)],
+                       p2[rows, (k - n1).clamp(min=0)])
+    return best_mode, satd_best, mode_bits[best_mode.long()], pred
+
+
+def _rough_stage(stage: int, s1, lam: float, mode_bits, m1, s2=None,
+                 refine=None, p1=None, p2=None):
+    """Launch stage 1 or 2 of csrc/rough_refine.cu (K12c's selections)."""
+    dev = kernels.check_cuda("rough_refine", s1, mode_bits, m1,
+                             *(t for t in (s2, refine, p1, p2)
+                               if t is not None))
+    B, n1 = s1.shape
+    if (s1.dtype != torch.int32 or m1.dtype != torch.int32
+            or tuple(m1.shape) != (n1,) or mode_bits.dtype != torch.float32
+            or tuple(mode_bits.shape) != (67,)):
+        raise ValueError("rough_refine: expects int32 s1 [B, n1], m1 [n1] "
+                         "and float32 mode_bits [67]")
+    if stage == 1:
+        refine = torch.empty((B, 4), dtype=torch.int32, device=dev)
+        kernels.launch("rough_refine", dev, 1, B, n1, 0, float(lam),
+                       s1.data_ptr(), None, refine.data_ptr(),
+                       mode_bits.data_ptr(), m1.data_ptr(), None, None, None,
+                       None, None, None)
+        return refine
+    _B, _n1, h, w = p1.shape
+    if (tuple(p1.shape[:2]) != (B, n1) or tuple(p2.shape) != (B, 4, h, w)
+            or tuple(s2.shape) != (B, 4) or tuple(refine.shape) != (B, 4)
+            or any(t.dtype != torch.int32 for t in (s2, refine, p1, p2))):
+        raise ValueError("rough_refine: expects int32 s2, refine [B, 4], "
+                         "p1 [B, n1, h, w], p2 [B, 4, h, w]")
+    best_mode = torch.empty((B,), dtype=torch.int32, device=dev)
+    satd_best = torch.empty((B,), dtype=torch.int32, device=dev)
+    extra = torch.empty((B,), dtype=torch.float32, device=dev)
+    pred = torch.empty((B, h, w), dtype=torch.int32, device=dev)
+    kernels.launch("rough_refine", dev, 2, B, n1, h * w, float(lam),
+                   s1.data_ptr(), s2.data_ptr(), refine.data_ptr(),
+                   mode_bits.data_ptr(), m1.data_ptr(), p1.data_ptr(),
+                   p2.data_ptr(), best_mode.data_ptr(), satd_best.data_ptr(),
+                   extra.data_ptr(), pred.data_ptr())
+    return best_mode, satd_best, extra, pred
+
+
+def rough_select(s1, lam: float, mode_bits, m1):
+    """K12c stage 1: rough_select_plain on the CPU, the kernel on the
+    card."""
+    if s1.device.type == "cpu":
+        return rough_select_plain(s1, lam, mode_bits, m1)
+    return _rough_stage(1, s1, lam, mode_bits, m1)
+
+
+def rough_pick(s1, s2, refine, lam: float, mode_bits, m1, p1, p2):
+    """K12c stage 2: rough_pick_plain on the CPU, the kernel on the card."""
+    if s1.device.type == "cpu":
+        return rough_pick_plain(s1, s2, refine, lam, mode_bits, m1, p1, p2)
+    return _rough_stage(2, s1, lam, mode_bits, m1, s2, refine, p1, p2)
+
+
+def _rough_chain(refs, src, qp: int, lam: float, wts, mode_bits,
+                 tables: dict, bitdepth: int, is_intra_slice: bool, m1,
+                 plain: bool):
+    from .intra_batch import (predict67, predict67_plain, predict_modes,
+                              predict_modes_plain, satd67, satd67_plain)
+    if plain:
+        pred67, predm, satd = predict67_plain, predict_modes_plain, \
+            satd67_plain
+        select, pick, rdp = rough_select_plain, rough_pick_plain, \
+            rd_cost_pred_plain
+    else:
+        pred67, predm, satd = predict67, predict_modes, satd67
+        select, pick, rdp = rough_select, rough_pick, rd_cost_pred
+    p1 = pred67(refs, tables, m1)                   # K2, M = 35
+    s1 = satd(p1, src)                              # K3
+    refine = select(s1, lam, mode_bits, m1)         # stage 1
+    p2 = predm(refs, refine, tables)                # K12b
+    s2 = satd(p2, src)                              # K3, M = 4
+    best_mode, satd_best, extra, pred = pick(s1, s2, refine, lam, mode_bits,
+                                             m1, p1, p2)   # stage 2
+    rd = rdp(pred, src, qp, lam, wts, extra, tables, bitdepth,
+             is_intra_slice)                        # K6
+    return best_mode, rd, satd_best
+
+
+def rough_refine_plain(refs, src, qp: int, lam: float, wts, mode_bits,
+                       tables: dict, bitdepth: int, m1,
+                       is_intra_slice: bool = True):
+    """K12c, plain version: refs [B, 4*REF_LEN], src [B, h, w] int32, wts
+    [4], mode_bits [67] float32, tables from ops.tables.device_tables, m1
+    the stage-1 modes (ops.tables.rough_modes) -> (best_mode [B] int32,
+    rd [B] float32, satd_best [B] int32): the chain of plain versions."""
+    return _rough_chain(refs, src, qp, lam, wts, mode_bits, tables,
+                        bitdepth, is_intra_slice, m1, True)
+
+
+def rough_refine(refs, src, qp: int, lam: float, wts, mode_bits,
+                 tables: dict, bitdepth: int, m1,
+                 is_intra_slice: bool = True):
+    """K12c: the chain through each stage's wrapper (K2, K3, stage 1, K12b,
+    K3, stage 2, K6): the plain versions on the CPU, the kernels on the
+    card."""
+    return _rough_chain(refs, src, qp, lam, wts, mode_bits, tables,
+                        bitdepth, is_intra_slice, m1, False)

@@ -10,13 +10,18 @@ built on the host with numpy exactly as the JAX package builds them:
 - per MIP size id: the weight matrices of ops.mip_tables;
 - per size class up to 32x32: the five MTS transform pairs (MTS_PAIRS) as
   horizontal and vertical matrices, with their zero-out masks;
-- the per-mode signalling bits MODE_BITS of the mode preselection.
+- the per-mode signalling bits MODE_BITS of the mode preselection, and
+  the 35 stage-1 modes ROUGH_MODES of the rough search;
+- per search range: the mvd bits of every quarter-pel MV component the
+  per-class inter search can give (mvd_bits_table); per lambda: its
+  full-pel and quarter-pel rate penalties (me_penalties).
 
 ``tables_to_torch`` turns a dict of such numpy tables into tensors on a
 device, each stored in the narrowest integer type that holds its values
 (as the kernels read them); ``device_tables``, ``frame_tables``,
-``mip_matrix`` and ``device_mts_tables`` cache the result per class, QP,
-size id and device.
+``mip_matrix``, ``device_mts_tables``, ``rough_modes``,
+``device_mvd_bits`` and ``me_penalties`` cache the result per class, QP,
+size id, search range, lambda and device.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 
 from .fast_cost_tables import FAST_COEFF_WTS
 from .intra_batch import build_mode_tables
+from .me import make_mv_penalty, mv_bits_est
 from .mip_tables import MIP_4X4, MIP_8X8, MIP_16X16
 from .quant import INV_QUANT_SCALES, QUANT_SCALES
 from .rd_cost import MTS_IDX, MTS_PAIRS
@@ -37,6 +43,9 @@ from .tr_matrices import DCT2, get_matrix
 MODE_BITS = np.full(67, 5.0, dtype=np.float32)
 MODE_BITS[0] = 1.5
 MODE_BITS[1] = 3.0
+# stage 1 of the rough search: planar, DC and the even angular modes
+# (ops/rd_cost.py make_rough_refine_fn's m1)
+ROUGH_MODES = np.array([0, 1] + list(range(2, 67, 2)), dtype=np.int32)
 
 # the type each table is stored in on the device: every K index is below
 # 4*REF_LEN = 780, every weight and DCT2 entry within +-128
@@ -46,9 +55,11 @@ NARROW = {"K": np.int16, "W": np.int8, "pdpc_wl": np.int8,
           "mts_w": np.int8, "mts_h": np.int8, "mts_mask": np.int8}
 
 __all__ = ["FAST_COEFF_WTS", "INV_QUANT_SCALES", "MODE_BITS", "MTS_IDX",
-           "QUANT_SCALES", "class_tables", "device_mts_tables",
-           "device_tables", "frame_tables", "mip_matrix", "mip_mode_bits",
-           "mts_class_tables", "tables_to_torch"]
+           "QUANT_SCALES", "ROUGH_MODES", "class_tables", "device_mts_tables",
+           "device_mvd_bits", "device_tables", "frame_tables",
+           "frac_penalty", "me_penalties", "mip_matrix", "mip_mode_bits",
+           "mts_class_tables", "mvd_bits_table", "rough_modes",
+           "tables_to_torch"]
 
 
 def class_tables(w: int, h: int, bitdepth: int) -> dict:
@@ -137,3 +148,49 @@ def mip_mode_bits(n_cand: int, device: str) -> torch.Tensor:
     on ``device`` (the reference's mip_bits of dispatch_blocks)."""
     return torch.full((n_cand,), 6.0, dtype=torch.float32,
                       device=torch.device(device))
+
+
+@lru_cache(maxsize=None)
+def rough_modes(device: str) -> torch.Tensor:
+    """ROUGH_MODES, int32 [35] on ``device``."""
+    return torch.from_numpy(ROUGH_MODES.copy()).to(torch.device(device))
+
+
+def mvd_bits_table(r: int) -> np.ndarray:
+    """[2 * (4r + 3) + 1] float32: mv_bits_est(v) for every quarter-pel MV
+    component v = mv16 >> 2 = 4 * full-pel + quarter-pel offset the
+    per-class inter search can give, v in [-(4r + 3), 4r + 3], at index
+    v + 4r + 3. The values are small integers, exact in float32."""
+    lim = 4 * r + 3
+    return np.array([mv_bits_est(v) for v in range(-lim, lim + 1)],
+                    dtype=np.float32)
+
+
+@lru_cache(maxsize=None)
+def device_mvd_bits(r: int, device: str) -> torch.Tensor:
+    """mvd_bits_table(r) on ``device``."""
+    return torch.from_numpy(mvd_bits_table(r)).to(torch.device(device))
+
+
+def frac_penalty(lam_sqrt: float) -> np.ndarray:
+    """[49] float32 rate penalty of the quarter-pel offsets k -> (k % 7 - 3,
+    k // 7 - 3): lam_sqrt * (2 per nonzero component), in float64 and
+    stored as float32 (the reference's fpen, control/encoder.py
+    search_inter_blocks)."""
+    fpen = np.empty(49, dtype=np.float32)
+    for k in range(49):
+        dxq, dyq = k % 7 - 3, k // 7 - 3
+        fpen[k] = lam_sqrt * ((0.0 if dxq == 0 else 2.0)
+                              + (0.0 if dyq == 0 else 2.0))
+    return fpen
+
+
+@lru_cache(maxsize=None)
+def me_penalties(lam: float, r: int, device: str):
+    """(pen [(2r+1)^2], fpen [49]) float32 on ``device``: the full-pel
+    penalty make_mv_penalty(r, sqrt(lam)), flattened dy major, and the
+    quarter-pel frac_penalty(sqrt(lam)), lam the inter lambda (float64)."""
+    lam_sqrt = np.sqrt(lam)
+    dev = torch.device(device)
+    return (torch.from_numpy(make_mv_penalty(r, lam_sqrt).reshape(-1))
+            .to(dev), torch.from_numpy(frac_penalty(lam_sqrt)).to(dev))
