@@ -35,9 +35,24 @@ Phases, one line each (or a few), any failure exits non-zero:
      included), K2 over the 35 stage-1 modes, K12b predict_modes (the
      refine lists and random lists) and the K12c rough_refine chain at
      every class of the rough path: all outputs equal, tolerance 0;
+  4d. the batched transforms and quantisers, whose only callers are their
+     users (no encode path reaches them, as in the reference): K13
+     fwd_transform / inv_transform and K14 quant_levels / dequant_levels
+     at the four all-intra classes (DCT2, 8 and 10 bits), every MTS pair up
+     to 32x32 and the rectangular 32x8 and 8x32, on the frame's residuals,
+     random residuals and int16-range inputs, the quantisers at qp_scaled
+     0, 22, 27, 37 and the largest and on the int32 wrap edges: all outputs
+     equal, dtypes included, tolerance 0. K13 also against the same
+     function as two float64 torch.matmul calls and the steps between them
+     (its "library" time, a chain of calls), equal on the frame's inputs.
+     Then the slice's own path: a round trip of the frame's residuals
+     through fwd_batch, quant_batch, dequant_batch and inv_batch per class,
+     one launch of each kernel per class, the output equal to the numpy
+     host functions on sampled blocks, and its device busy time;
   5. the all-intra path: Encoder(cfg, device="cuda").feed/flush of a
      10-frame 832x480 all-intra QP22 clip (bench.py's configuration); K1-K4
-     must launch once per size class and frame, every other kernel never;
+     must launch once per size class and frame, every other kernel never
+     (on every encode path K13 and K14 must launch zero times);
      wall fps and device busy time;
   6. the low-delay path: bench.py's LD configuration (832x480 QP27, GOP 4
      low-delay, rdoq off) over its 40-frame sequence: host ME, K5 and K1-K4
@@ -116,15 +131,23 @@ REPLACES = {
     "frac_search": "uvg266_tpu/ops/me.py:79",
     "predict_modes": "uvg266_tpu/ops/intra_batch.py:374",
     "rough_refine": "uvg266_tpu/ops/rd_cost.py:154",
+    "fwd_transform": "uvg266_tpu/ops/transforms.py:86",
+    "inv_transform": "uvg266_tpu/ops/transforms.py:112",
+    "quant_levels": "uvg266_tpu/ops/quant.py:153",
+    "dequant_levels": "uvg266_tpu/ops/quant.py:174",
 }
 INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
+TR_KERNELS = ("fwd_transform", "inv_transform", "quant_levels",
+              "dequant_levels")
+TR_QPS = (0, 22, 27, 37)      # qp_scaled of phase 4d, and the largest
 # the path whose run gives each kernel's "launches" in the JSON line
 MAIN_PATH = {**dict.fromkeys(INTRA_KERNELS, "all-intra"),
              "pseudo_recon": "low-delay", "rd_cost_pred": "dense RA",
              "frame_inter": "dense RA", "leaf_qpel": "dense RA",
              "mip_preds": "MIP", "refs_blocks": "MIP", "mts_search": "MTS",
              "fullpel_search": "10-bit LD", "frac_search": "10-bit LD",
-             "predict_modes": "rough", "rough_refine": "rough"}
+             "predict_modes": "rough", "rough_refine": "rough",
+             **dict.fromkeys(TR_KERNELS, "transform round trip")}
 
 
 def fail(msg: str) -> None:
@@ -327,6 +350,18 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
                   B * 39 * 4),
                  work("rd_cost_pred", B, w, h, H_, W_)]
         return sum(p[0] for p in parts), sum(p[1] for p in parts)
+    if name in ("fwd_transform", "inv_transform"):
+        # an int32 block in, an int16 block out, the two int8 matrices;
+        # a 1-D DCT2 per row and per column as partial butterflies
+        return (B * hw * 6 + w * w + h * h,
+                B * (h * dct_ops(w) + w * dct_ops(h)))
+    if name == "quant_levels":
+        # an int32 in and out per element; |c|, a multiply-add, a shift,
+        # the sign and a clip at both ends
+        return B * hw * 8, B * hw * 7
+    if name == "dequant_levels":
+        # a multiply-add, a shift and a clip at both ends
+        return B * hw * 8, B * hw * 5
     if name == "satd67":
         n = 8 if (w >= 8 and h >= 8) else 4
         return (B * M * hw * 4 + B * hw * 4 + B * M * 4,
@@ -373,6 +408,28 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
                 + 49 * 64 * satd_ops(8) + 49)
     return (nt * (324 + 64 + 1) * 4 + 49 * 4 + nl * 51 * 4,
             nt * per_tile + nl * 49 * 2)
+
+
+def fwd_f64(torch, x, mw, mh, s1, s2, keep_w, keep_h):
+    """K13's forward as two float64 torch.matmul calls and the elementwise
+    steps between them (mw, mh float64): exact where every product and sum
+    stays below 2^53 and inside int32, as on the frame's residuals."""
+    def step(v, s):                    # (v + 2^(s-1)) >> s, then int16 wrap
+        v = torch.floor((v + 2.0 ** (s - 1)) / 2.0 ** s)
+        return torch.remainder(v + 32768, 65536) - 32768
+    c = step(torch.matmul(mh, step(torch.matmul(x.double(), mw.T), s1)), s2)
+    c[:, keep_h:, :] = 0
+    c[:, :, keep_w:] = 0
+    return c.to(torch.int16)
+
+
+def inv_f64(torch, c, mw, mh, s1, s2):
+    """K13's inverse in the same form."""
+    def step(v, s):                    # (v + 2^(s-1)) >> s, then clip16
+        return torch.floor((v + 2.0 ** (s - 1)) / 2.0 ** s).clamp(-32768,
+                                                                   32767)
+    return step(torch.matmul(step(torch.matmul(mh.T, c.double()), s1), mw),
+                s2).to(torch.int16)
 
 
 def inter_classes(slice_enc, entries):
@@ -433,7 +490,11 @@ def main() -> int:
     from uvg266_tpu_torch.ops import me_frame as mf
     from uvg266_tpu_torch.ops import mip as mp
     from uvg266_tpu_torch.ops import pseudo_recon as pr
+    from uvg266_tpu_torch.ops import quant as qu
     from uvg266_tpu_torch.ops import rd_cost as rc
+    from uvg266_tpu_torch.ops import transforms as tr
+    from uvg266_tpu_torch.ops.tr_matrices import (DCT2, DCT8, DST7,
+                                                  device_matrix)
     from uvg266_tpu_torch.ops.inter import fetch_extended_block
     from uvg266_tpu_torch.ops.me import make_mv_penalty
     from uvg266_tpu_torch.ops.tables import (device_mts_tables, device_tables,
@@ -481,6 +542,7 @@ def main() -> int:
     err = dict.fromkeys(REPLACES, 0.0)
     ms = dict.fromkeys(REPLACES, 0.0)
     plain_ms = dict.fromkeys(REPLACES, 0.0)
+    library_ms = dict.fromkeys(REPLACES)
     bytes_ = dict.fromkeys(REPLACES, 0)
     ops = dict.fromkeys(REPLACES, 0)
     checks = 0
@@ -956,6 +1018,148 @@ def main() -> int:
                      f"times, expected {want_counts.get(name, 0)}")
         counts[path] = launches
 
+    # --- 4d. the batched transforms and quantisers --------------------------
+    n0 = checks
+
+    def tiles(plane, w, h):
+        """The w x h blocks of a plane, cropped to whole blocks."""
+        hh, ww = H // h * h, W // w * w
+        return plane[:hh, :ww].reshape(hh // h, h, ww // w, w) \
+            .transpose(1, 2).reshape(-1, h, w).contiguous()
+
+    def tr_inputs(w, h, bd):
+        """The frame's residuals (the clip scaled to the bit depth, minus
+        1 << (bd - 1)), random residuals, int16-range inputs."""
+        res = tiles(frame_src, w, h) * (1 << (bd - 8)) - (1 << (bd - 1))
+        mx = (1 << bd) - 1
+        return {"frame": res,
+                "rand": torch.randint(-mx, mx + 1, res.shape, generator=gen,
+                                      device=dev, dtype=torch.int32),
+                "int16": torch.randint(-32767, 32768, res.shape,
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32)}
+
+    edges = torch.tensor([0, 1, -1, 200000, -200000, 2 ** 31 - 1, -2 ** 31,
+                          32767, -32768, 26215, -26215, 29127],
+                         dtype=torch.int32, device=dev)
+    dct2_cls = [(w, h) for (w, h, _g) in classes]
+    tr_shapes = [(w, h, DCT2, DCT2) for (w, h) in dct2_cls + [(32, 8),
+                                                              (8, 32)]]
+    tr_shapes += [(w, h, th, tv) for (w, h) in dct2_cls + [(32, 8), (8, 32)]
+                  if max(w, h) <= 32
+                  for th in (DST7, DCT8) for tv in (DST7, DCT8)]
+    for (w, h, th, tv) in tr_shapes:
+        for bd in (8, 10):
+            for tag, x in tr_inputs(w, h, bd).items():
+                what = f"{w}x{h} {th}/{tv} {bd}-bit {tag}"
+                c = tr.fwd_batch(x, th, tv, bd)
+                same("fwd_transform", what, c,
+                     tr.fwd_batch_plain(x, th, tv, bd))
+                cc = torch.cat([c.to(torch.int32), x])
+                same("inv_transform", what, tr.inv_batch(cc, th, tv, bd),
+                     tr.inv_batch_plain(cc, th, tv, bd))
+                if th != DCT2 or tv != DCT2:
+                    continue
+                # the quantisers on the coefficients, int16-range values
+                # and the int32 edges
+                lv = cc.clone()
+                lv[0].view(-1)[:min(edges.numel(), w * h)] = \
+                    edges[:w * h]
+                for qp in TR_QPS + (51 if bd == 8 else 63,):
+                    for intra in (True, False):
+                        same("quant_levels", f"{what} qp{qp} {intra}",
+                             qu.quant_batch(lv, qp, bd, intra),
+                             qu.quant_batch_plain(lv, qp, bd, intra))
+                    same("dequant_levels", f"{what} qp{qp}",
+                         qu.dequant_batch(lv, qp, bd),
+                         qu.dequant_batch_plain(lv, qp, bd))
+    # the wrap edges of the reference: 8x4 at 10 bits, qp_scaled 63, levels
+    # of magnitude 26215 and more (level * (80 << 10) passes 2^31), and the
+    # quant of 200000 at 4x4 10 bits, qp_scaled 0
+    big = torch.randint(26215, 32768, (1024, 4, 8), generator=gen,
+                        device=dev, dtype=torch.int32)
+    big[1::2] = -big[1::2]
+    big[0, 0, :2] = torch.tensor([29127, -32768], dtype=torch.int32)
+    dq = qu.dequant_batch(big, 63, 10)
+    same("dequant_levels", "8x4 10-bit qp63 wrap", dq,
+         qu.dequant_batch_plain(big, 63, 10))
+    if dq[0, 0, :2].tolist() != [-32768, 32767]:
+        fail(f"dequant_levels: 29127 and -32768 at 8x4 10-bit qp63 gave "
+             f"{dq[0, 0, :2].tolist()}, the reference's wrap gives "
+             "[-32768, 32767]")
+    q200 = qu.quant_batch(torch.full((64, 4, 4), 200000, dtype=torch.int32,
+                                     device=dev), 0, 10)
+    if not bool((q200 == 7231).all()):
+        fail("quant_levels: 200000 at 4x4 10-bit qp0 is not the reference's "
+             "7231")
+    # times at the frame's residuals (8 bits, QP22), once per class; the
+    # float64 matmul chain as K13's library time, equal on these inputs
+    for (w, h) in dct2_cls:
+        x = tr_inputs(w, h, 8)["frame"]
+        s1, s2 = tr.fwd_shifts(w, h, 8)
+        i1, i2 = tr.inv_shifts(8)
+        keep_w, keep_h = tr.zero_out(w, DCT2, DCT2, h)
+        mw = device_matrix(DCT2, w, str(dev)).double()
+        mh = device_matrix(DCT2, h, str(dev)).double()
+        c = tr.fwd_batch(x, DCT2, DCT2, 8)
+        lv = qu.quant_batch(c, QP, 8)
+        dq = qu.dequant_batch(lv, QP, 8)
+        same("fwd_transform", f"{w}x{h} float64 chain", c,
+             fwd_f64(torch, x, mw, mh, s1, s2, keep_w, keep_h))
+        same("inv_transform", f"{w}x{h} float64 chain",
+             tr.inv_batch(dq, DCT2, DCT2, 8),
+             inv_f64(torch, dq, mw, mh, i1, i2))
+        shape = dict(B=x.shape[0], w=w, h=h, H_=H, W_=W)
+        for name, kern, plain, lib in (
+                ("fwd_transform", lambda: tr.fwd_batch(x, DCT2, DCT2, 8),
+                 lambda: tr.fwd_batch_plain(x, DCT2, DCT2, 8),
+                 lambda: fwd_f64(torch, x, mw, mh, s1, s2, keep_w, keep_h)),
+                ("inv_transform", lambda: tr.inv_batch(dq, DCT2, DCT2, 8),
+                 lambda: tr.inv_batch_plain(dq, DCT2, DCT2, 8),
+                 lambda: inv_f64(torch, dq, mw, mh, i1, i2)),
+                ("quant_levels", lambda: qu.quant_batch(c, QP, 8),
+                 lambda: qu.quant_batch_plain(c, QP, 8), None),
+                ("dequant_levels", lambda: qu.dequant_batch(lv, QP, 8),
+                 lambda: qu.dequant_batch_plain(lv, QP, 8), None)):
+            timed(name, kern, plain, f"{w}x{h}", **shape)
+            if lib is not None:
+                lib_ms = time_ms(torch, lib, 20)
+                library_ms[name] = (library_ms[name] or 0.0) + lib_ms
+                print(f"  {name} {w}x{h}: {lib_ms:.4f} ms float64 "
+                      "torch.matmul chain", flush=True)
+    print(f"phase 4d transform and quant kernels: {checks - n0} comparisons, "
+          "all equal", flush=True)
+
+    # the slice's own path: the frame's residuals through the four batched
+    # entry points per class, the output held against the numpy host
+    # functions (no int32 edge on these inputs) on sampled blocks
+    resid = {(w, h): tr_inputs(w, h, 8)["frame"] for (w, h) in dct2_cls}
+
+    def round_trip():
+        return {k: tr.inv_batch(qu.dequant_batch(qu.quant_batch(
+            tr.fwd_batch(x), QP), QP)) for k, x in resid.items()}
+
+    kernels.reset_launches()
+    recon = round_trip()
+    torch.cuda.synchronize()
+    expect("transform round trip", dict(kernels.LAUNCHES),
+           dict.fromkeys(TR_KERNELS, len(dct2_cls)))
+    for (w, h), r in recon.items():
+        xs_np, r_np = resid[(w, h)].cpu().numpy(), r.cpu().numpy()
+        for b in np.linspace(0, len(xs_np) - 1, 8).astype(int):
+            c_np = tr.fwd_transform_2d(xs_np[b])
+            want = tr.inv_transform_2d(qu.dequant(
+                qu.quant(c_np.astype(np.int32), QP).astype(np.int32), QP)
+                .astype(np.int32))
+            if r_np[b].dtype != np.int16 or not np.array_equal(r_np[b], want):
+                fail(f"transform round trip {w}x{h} block {b}: differs from "
+                     "the numpy host functions")
+    print("phase 4d transform round trip: launches "
+          + json.dumps({k: counts["transform round trip"][k]
+                        for k in TR_KERNELS})
+          + ", sampled blocks equal the numpy host functions", flush=True)
+    print(busy_share(torch, round_trip), flush=True)
+
     def n_classes(enc):
         return len(enc.slice_enc._fused_entries_c)
 
@@ -1276,7 +1480,9 @@ def main() -> int:
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": library_ms[name],
+            "path": MAIN_PATH[name] + (" (no encode path reaches it)"
+                                       if name in TR_KERNELS else ""),
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

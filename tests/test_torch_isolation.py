@@ -21,8 +21,10 @@ from uvg266_tpu_torch.ops import me
 from uvg266_tpu_torch.ops import me_frame as mf
 from uvg266_tpu_torch.ops import mip
 from uvg266_tpu_torch.ops import pseudo_recon as pr
+from uvg266_tpu_torch.ops import quant as qu
 from uvg266_tpu_torch.ops import rd_cost as rd
 from uvg266_tpu_torch.ops import tables as tb
+from uvg266_tpu_torch.ops import transforms as tr
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(uvg266_tpu_torch.__file__))
@@ -250,6 +252,11 @@ def test_wrappers_raise_instead_of_falling_back():
                                 torch.empty((4, 8, 8), **meta), 22, 57.9,
                                 ft["wts"], ft["mode_bits"], tabs, 8,
                                 torch.empty((35,), **meta)),
+        # the batched transforms and quantisers
+        lambda: tr.fwd_batch(torch.empty((4, 8, 16), **meta), 2, 1, 10),
+        lambda: tr.inv_batch(torch.empty((4, 8, 16), **meta), 2, 1, 10),
+        lambda: qu.quant_batch(torch.empty((4, 8, 16), **meta), 22, 8),
+        lambda: qu.dequant_batch(torch.empty((4, 8, 16), **meta), 22, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no kernel for device"):

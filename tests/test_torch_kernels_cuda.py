@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K12 against their plain PyTorch versions on the
+"""The CUDA kernels K1-K14 against their plain PyTorch versions on the
 card.
 
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA card: they
@@ -259,3 +259,47 @@ def test_rough_kernels_equal_plain(card, w, h, bd):
             if kernels.LAUNCHES[k] != before[k]} == {
         "predict67": 3, "predict_modes": 3, "satd67": 4, "rough_refine": 4,
         "rd_cost_pred": 2}
+
+
+@pytest.mark.parametrize("w,h,th,tv,bd", [
+    (4, 4, 0, 0, 8), (8, 8, 0, 0, 10), (16, 16, 2, 2, 8), (32, 32, 1, 1, 10),
+    (64, 64, 0, 0, 8), (64, 64, 0, 0, 10), (32, 8, 2, 1, 8),
+    (8, 32, 1, 2, 10), (8, 4, 0, 0, 10), (64, 16, 0, 0, 8)])
+def test_transform_quant_kernels_equal_plain(card, w, h, th, tv, bd):
+    """K13 fwd_transform / inv_transform (DCT2 and the MTS types, with the
+    zero-out of 32- and 64-point dimensions) and K14 quant_levels /
+    dequant_levels at every qp_scaled the encoder gives, on residuals,
+    int16-range inputs and the int32 wrap edges: equal, dtypes included."""
+    from uvg266_tpu_torch.ops import quant as q
+    from uvg266_tpu_torch.ops import transforms as tr
+    rng = np.random.default_rng(w * 5 + h * 3 + th + tv + bd)
+    mx = (1 << bd) - 1
+    x = np.concatenate([rng.integers(-mx, mx + 1, (40, h, w)),
+                        rng.integers(-32767, 32768, (8, h, w)),
+                        np.full((1, h, w), mx), np.full((1, h, w), -mx)])
+    x = _t(x.astype(np.int32), card)
+    before = dict(kernels.LAUNCHES)
+    c = tr.fwd_batch(x, th, tv, bd)
+    assert c.dtype == torch.int16
+    assert torch.equal(c, tr.fwd_batch_plain(x, th, tv, bd))
+    cc = torch.cat([c.to(torch.int32), x])
+    assert torch.equal(tr.inv_batch(cc, th, tv, bd),
+                       tr.inv_batch_plain(cc, th, tv, bd))
+    edges = torch.tensor([0, 1, -1, 26215, 29127, 32767, -32768, 200000,
+                          -200000, 2 ** 31 - 1, -2 ** 31], dtype=torch.int32,
+                         device=card)
+    levels = cc.clone()
+    levels[0].view(-1)[:edges.numel()] = edges
+    n_qp = 52 if bd == 8 else 64
+    for qp in range(n_qp):
+        for intra in (True, False):
+            a = q.quant_batch(levels, qp, bd, intra)
+            assert a.dtype == torch.int32
+            assert torch.equal(a, q.quant_batch_plain(levels, qp, bd, intra))
+        assert torch.equal(q.dequant_batch(levels, qp, bd),
+                           q.dequant_batch_plain(levels, qp, bd))
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {
+        "fwd_transform": 1, "inv_transform": 1, "quant_levels": 2 * n_qp,
+        "dequant_levels": n_qp}

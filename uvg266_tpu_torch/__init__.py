@@ -9,7 +9,10 @@ the all-intra frame search, its tool paths (MIP through the per-class
 dispatch, intra MTS, the rough search), the low-delay / random-access P
 and B slices (host ME with the device intra screen, or the all-device
 dense search) and the per-class inter search that inter slices above 8
-bits, with MTS or with MIP run (search_combined).
+bits, with MTS or with MIP run (search_combined). The batched transforms
+and quantisers (ops.transforms ``fwd_batch`` / ``inv_batch``, ops.quant
+``quant_batch`` / ``dequant_batch``) have kernels too; as in the
+reference, no encode path calls them.
 
 The port runs on the card unless the caller passes ``device="cpu"``. On
 the CPU every kernel wrapper computes its plain PyTorch version; on a CUDA

@@ -26,7 +26,7 @@ from .. import kernels
 from .inter import LUMA_FILTER
 from .me import mv_bits_est
 from .intra_batch import _fwht, _grid_xy
-from .rd_cost import _PLAIN_CHUNK
+from .transforms import _PLAIN_CHUNK
 
 TILE = 8
 

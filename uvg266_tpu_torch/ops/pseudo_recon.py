@@ -26,9 +26,10 @@ import torch
 from .. import kernels
 from .quant import INV_QUANT_SCALES, MAX_TR_DYNAMIC_RANGE, QUANT_SHIFT, \
     quant_params
-from .rd_cost import _PLAIN_CHUNK, _imatmul, _wrap, quant_consts
+from .rd_cost import quant_consts
 from .tr_matrices import DCT2, get_matrix
-from .transforms import fwd_shifts, inv_shifts
+from .transforms import (_PLAIN_CHUNK, _imatmul, _wrap, fwd_shifts,
+                         inv_shifts)
 
 _LOG2 = {16: 4}
 TILE = 16

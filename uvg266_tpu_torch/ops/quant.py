@@ -4,10 +4,24 @@ scale tables scalinglist.c:91-97).
 
 Default path only (no custom scaling lists); sign-data hiding is applied as
 a separate pass (see signhide further down, quant-generic.c:134-258).
+
+K14 ``quant_batch`` / ``dequant_batch`` are the batched device twins (the
+reference's make_quant_fn / make_dequant_fn), each a plain PyTorch version
+plus a wrapper that launches the hand-written CUDA kernel (csrc/quant.cu)
+for tensors on the card. They compute in int32 as the reference does (x64
+off: its int64 casts are int32) and wrap where it wraps, so they differ
+from the numpy ``quant`` / ``dequant`` above, which saturate: at 8x4, 10
+bits, qp_scaled 63 the level 29127 dequantises to -32768 (numpy: 32767),
+and at 4x4, 10 bits, qp_scaled 0 the coefficient 200000 quantises to 7231
+(numpy: 32767).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .. import kernels
+from .transforms import _int32_blocks, _wrap
 
 QUANT_SCALES = np.array([
     [26214, 23302, 20560, 18396, 16384, 14564],
@@ -146,3 +160,105 @@ def dequant(q: np.ndarray, qp_scaled: int, bitdepth: int = 8,
     add = 1 << (shift - 1)
     c = (q.astype(np.int64) * scale + add) >> shift
     return np.clip(c, -32768, 32767).astype(np.int16)
+
+
+# --- K14: the batched quantiser and dequantiser ----------------------------
+
+def _check_shift(name: str, qp_scaled: int, shift: int) -> None:
+    # the reference shifts int32 values by amounts it computes from the
+    # traced qp_scaled; XLA's result for an amount outside [0, 31] is not
+    # C's or Python's, and no encoder QP gives one
+    if not 0 <= shift <= 31:
+        raise ValueError(f"{name}: qp_scaled {qp_scaled} gives the shift "
+                         f"{shift}, outside [0, 31]")
+
+
+def quant_batch_consts(width: int, height: int, bitdepth: int,
+                       is_intra_slice: bool, qp_scaled: int
+                       ) -> tuple[int, int, int]:
+    """(scale, add, q_bits) of make_quant_fn at qp_scaled, in its int32
+    arithmetic."""
+    log2_w, log2_h = LOG2[width], LOG2[height]
+    needs_sqrt2 = (log2_w + log2_h) % 2 == 1
+    transform_shift = MAX_TR_DYNAMIC_RANGE - bitdepth \
+        - ((log2_w + log2_h) >> 1) - needs_sqrt2
+    q_bits = QUANT_SHIFT + qp_scaled // 6 + transform_shift
+    _check_shift("quant_batch", qp_scaled, q_bits)
+    _check_shift("quant_batch", qp_scaled, q_bits - 9)
+    add = _wrap((171 if is_intra_slice else 85) << (q_bits - 9), 32)
+    return int(QUANT_SCALES[int(needs_sqrt2), qp_scaled % 6]), add, q_bits
+
+
+def dequant_batch_consts(width: int, height: int, bitdepth: int,
+                         qp_scaled: int) -> tuple[int, int, int]:
+    """(scale, add, shift) of make_dequant_fn at qp_scaled, in its int32
+    arithmetic."""
+    log2_w, log2_h = LOG2[width], LOG2[height]
+    needs_sqrt2 = (log2_w + log2_h) % 2 == 1
+    transform_shift = MAX_TR_DYNAMIC_RANGE - bitdepth \
+        - ((log2_w + log2_h) >> 1)
+    shift = 20 - QUANT_SHIFT - (transform_shift - needs_sqrt2)
+    add = 1 << (shift - 1)
+    _check_shift("dequant_batch", qp_scaled, qp_scaled // 6)
+    scale = _wrap(int(INV_QUANT_SCALES[int(needs_sqrt2), qp_scaled % 6])
+                  << (qp_scaled // 6), 32)
+    return scale, add, shift
+
+
+def quant_batch_plain(coef: torch.Tensor, qp_scaled: int, bitdepth: int = 8,
+                      is_intra_slice: bool = True) -> torch.Tensor:
+    """K14 quantiser, plain version (the reference's make_quant_fn):
+    coefficients [..., h, w] of an integer type -> levels int32,
+      level = (|coef| * scale + add) >> q_bits
+      q     = clip(sign(coef) * level, -32768, 32767)
+    in int32 (wrapping; |INT32_MIN| stays INT32_MIN, as in XLA)."""
+    coef = _int32_blocks("quant_batch", coef)
+    scale, add, q_bits = quant_batch_consts(
+        coef.shape[-1], coef.shape[-2], bitdepth, is_intra_slice, qp_scaled)
+    c = coef.long()
+    level = _wrap(c.abs() * scale + add, 32) >> q_bits
+    return _wrap(c.sign() * level, 32).clamp(-32768, 32767).to(torch.int32)
+
+
+def dequant_batch_plain(q: torch.Tensor, qp_scaled: int,
+                        bitdepth: int = 8) -> torch.Tensor:
+    """K14 dequantiser, plain version (the reference's make_dequant_fn):
+    levels [..., h, w] of an integer type -> coefficients int32,
+    clip((q * scale + add) >> shift, -32768, 32767) in int32 (wrapping)."""
+    q = _int32_blocks("dequant_batch", q)
+    scale, add, shift = dequant_batch_consts(q.shape[-1], q.shape[-2],
+                                             bitdepth, qp_scaled)
+    c = _wrap(q.long() * scale + add, 32) >> shift
+    return c.clamp(-32768, 32767).to(torch.int32)
+
+
+def _launch_levels(name: str, x: torch.Tensor, *consts: int) -> torch.Tensor:
+    x = x.contiguous()
+    dev = kernels.check_cuda(name, x)
+    out = torch.empty_like(x)
+    if x.numel():
+        kernels.launch(name, dev, x.data_ptr(), x.numel(), *consts,
+                       out.data_ptr())
+    return out
+
+
+def quant_batch(coef: torch.Tensor, qp_scaled: int, bitdepth: int = 8,
+                is_intra_slice: bool = True) -> torch.Tensor:
+    """K14 quantiser: quant_batch_plain on the CPU, the CUDA kernel on the
+    card."""
+    if coef.device.type == "cpu":
+        return quant_batch_plain(coef, qp_scaled, bitdepth, is_intra_slice)
+    coef = _int32_blocks("quant_batch", coef)
+    return _launch_levels("quant_levels", coef, *quant_batch_consts(
+        coef.shape[-1], coef.shape[-2], bitdepth, is_intra_slice, qp_scaled))
+
+
+def dequant_batch(q: torch.Tensor, qp_scaled: int,
+                  bitdepth: int = 8) -> torch.Tensor:
+    """K14 dequantiser: dequant_batch_plain on the CPU, the CUDA kernel on
+    the card."""
+    if q.device.type == "cpu":
+        return dequant_batch_plain(q, qp_scaled, bitdepth)
+    q = _int32_blocks("dequant_batch", q)
+    return _launch_levels("dequant_levels", q, *dequant_batch_consts(
+        q.shape[-1], q.shape[-2], bitdepth, qp_scaled))

@@ -37,7 +37,8 @@ import torch
 from .. import kernels
 from .quant import INV_QUANT_SCALES, QUANT_SCALES
 from .tr_matrices import DCT2, DCT8, DST7
-from .transforms import fwd_shifts, inv_shifts
+from .transforms import (_PLAIN_CHUNK, _imatmul, _wrap, fwd_shifts,
+                         inv_shifts)
 
 LOG2 = {4: 2, 8: 3, 16: 4, 32: 5, 64: 6}
 
@@ -64,22 +65,6 @@ def quant_consts(w: int, h: int, bitdepth: int, qp: int,
             "add": add_base << (q_bits - 9),
             "iscale": int(INV_QUANT_SCALES[needs_sqrt2][qp % 6]) << (qp // 6),
             "dq_shift": 20 - 14 - (tshift_d - needs_sqrt2)}
-
-
-def _wrap(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Two's-complement wrap of an int64 tensor to ``bits`` bits."""
-    half = 1 << (bits - 1)
-    return ((x + half) & ((1 << bits) - 1)) - half
-
-
-def _imatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int64 product a [..., m, k] @ b [..., k, n] as a broadcast
-    multiply and sum (no integer GEMM on the card)."""
-    return (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(dim=-2)
-
-
-# int64 elements of the largest intermediate per chunk of blocks
-_PLAIN_CHUNK = 1 << 24
 
 
 def _rd_tail_plain(pred, blk, c: dict, w: int, h: int, bitdepth: int, wts,

@@ -8,12 +8,16 @@ encodes the same structure as C macros (dct-generic.c:830-1027
 DEFINE_{DCT2,DST7,DCT8}_P*_MATRIX); we generate the matrices from the
 parameter lists and the reduction rules, which the tests verify
 element-exactly against frozen hashes of the reference tables.
+
+``device_matrix`` keeps an int8 copy of each matrix per device (every entry
+lies within +-91), as the transform kernels read them.
 """
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
 
 # odd-frequency basis amplitudes of the DCT-II matrices per size
 DCT2_ODD = {
@@ -118,3 +122,10 @@ def get_matrix(tr_type: int, n: int) -> np.ndarray:
     if tr_type == DCT8:
         return dct8_matrix(n)
     raise ValueError(tr_type)
+
+
+@functools.lru_cache(maxsize=None)
+def device_matrix(tr_type: int, n: int, device: str) -> torch.Tensor:
+    """get_matrix(tr_type, n) as int8 on ``device``, built once per process."""
+    return torch.from_numpy(get_matrix(tr_type, n).astype(np.int8)) \
+        .to(torch.device(device))

@@ -12,14 +12,21 @@ macros :720-770).  In matrix form, for an h x w residual block X:
 Zero-out rules: a non-DCT2 32-point dimension keeps 16 coefficients; any
 64-point dimension keeps 32 (mts_dct_generic:2582-2583).
 
-On TPU these run as batched integer matmuls over fixed-size TU batches; XLA
-maps them onto the MXU (values fit 16 bits so the int32 dot is exact).
+K13 ``fwd_batch`` / ``inv_batch`` are the batched device twins (the
+reference's make_fwd_fn / make_inv_fn), each a plain PyTorch version plus a
+wrapper that launches the hand-written CUDA kernel (csrc/transform.cu) for
+tensors on the card. Both compute in int32 where the reference does (x64
+off: its products accumulate in int32), wrapping on overflow as it does,
+and cast to int16 as it does, so they differ from the numpy versions above
+on inputs far outside a residual's range.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .tr_matrices import DCT2, DCT8, DST7, get_matrix
+from .. import kernels
+from .tr_matrices import DCT2, DCT8, DST7, device_matrix, get_matrix
 
 LOG2 = {1: 0, 2: 1, 4: 2, 8: 3, 16: 4, 32: 5, 64: 6}
 
@@ -79,3 +86,152 @@ def inv_transform_2d(c: np.ndarray, type_hor: int = DCT2, type_ver: int = DCT2,
     u = np.clip(_rshift_round(mv.T @ c.astype(np.int64), s1), -32768, 32767)
     x = np.clip(_rshift_round(u @ mh, s2), -32768, 32767).astype(np.int16)
     return x
+
+
+# --- K13: the batched transforms -------------------------------------------
+
+def _wrap(x, bits: int):
+    """Two's-complement wrap of an int64 tensor (or a Python int) to
+    ``bits`` bits."""
+    half = 1 << (bits - 1)
+    return ((x + half) & ((1 << bits) - 1)) - half
+
+
+def _imatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int64 product a [..., m, k] @ b [..., k, n] as a broadcast
+    multiply and sum (no integer GEMM on the card)."""
+    return (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(dim=-2)
+
+
+# int64 elements of the largest intermediate per chunk of blocks
+_PLAIN_CHUNK = 1 << 24
+
+
+def _check_shifts(*shifts: int) -> None:
+    # the reference builds its rounding offsets 1 << (s - 1) when it is
+    # made, and Python refuses a negative shift there
+    if min(shifts) < 1:
+        raise ValueError("negative shift count")
+
+
+def _fwd_params(width: int, height: int, type_hor: int, type_ver: int,
+                bitdepth: int) -> tuple[int, int, int, int]:
+    """(s1, s2, keep_w, keep_h) of make_fwd_fn, raising where it raises:
+    a negative shift (width 2 at 8 bits) or a matrix that does not exist
+    (DST7 / DCT8 at 64)."""
+    s1, s2 = fwd_shifts(width, height, bitdepth)
+    get_matrix(type_hor, width)
+    get_matrix(type_ver, height)
+    keep_w, keep_h = zero_out(width, type_hor, type_ver, height)
+    _check_shifts(s1, s2)
+    return s1, s2, keep_w, keep_h
+
+
+def _inv_params(width: int, height: int, type_hor: int, type_ver: int,
+                bitdepth: int) -> tuple[int, int]:
+    """(s1, s2) of make_inv_fn, raising where it raises."""
+    s1, s2 = inv_shifts(bitdepth)
+    get_matrix(type_hor, width)
+    get_matrix(type_ver, height)
+    _check_shifts(s1, s2)
+    return s1, s2
+
+
+def _int32_blocks(name: str, x: torch.Tensor) -> torch.Tensor:
+    """x [..., h, w] of an integer type as int32, as the reference's
+    astype(int32)."""
+    if x.dim() < 2 or x.dtype.is_floating_point or x.dtype.is_complex \
+            or x.dtype == torch.bool:
+        raise ValueError(f"{name}: expects an integer tensor [..., h, w]")
+    return x.to(torch.int32)
+
+
+def fwd_batch_plain(x: torch.Tensor, type_hor: int = DCT2,
+                    type_ver: int = DCT2, bitdepth: int = 8) -> torch.Tensor:
+    """K13 forward, plain version (the reference's make_fwd_fn): residuals
+    x [..., h, w] of an integer type -> coefficients [..., h, w] int16:
+      t = int16((x @ Mh^T + (1 << (s1-1))) >> s1)
+      c = int16((Mv @ t + (1 << (s2-1))) >> s2), zero outside the kept
+          rectangle (zero_out)
+    with the products and the rounding add in int32 (wrapping)."""
+    x = _int32_blocks("fwd_batch", x)
+    h, w = x.shape[-2:]
+    s1, s2, keep_w, keep_h = _fwd_params(w, h, type_hor, type_ver, bitdepth)
+    mh = device_matrix(type_hor, w, str(x.device)).long()
+    mv = device_matrix(type_ver, h, str(x.device)).long()
+    xb = x.reshape(-1, h, w)
+    out = torch.empty(xb.shape, dtype=torch.int16, device=x.device)
+    step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
+    for b0 in range(0, xb.shape[0], step):
+        blk = xb[b0:b0 + step].long()
+        t = _wrap(_wrap(_imatmul(blk, mh.T) + (1 << (s1 - 1)), 32) >> s1, 16)
+        c = _wrap(_wrap(_imatmul(mv, t) + (1 << (s2 - 1)), 32) >> s2, 16)
+        c[:, keep_h:, :] = 0
+        c[:, :, keep_w:] = 0
+        out[b0:b0 + step] = c
+    return out.reshape(x.shape)
+
+
+def inv_batch_plain(c: torch.Tensor, type_hor: int = DCT2,
+                    type_ver: int = DCT2, bitdepth: int = 8) -> torch.Tensor:
+    """K13 inverse, plain version (the reference's make_inv_fn):
+    coefficients c [..., h, w] of an integer type -> residuals [..., h, w]
+    int16:
+      u = clip16((Mv^T @ c + (1 << (s1-1))) >> s1)
+      x = clip16((u @ Mh + (1 << (s2-1))) >> s2)
+    with the products and the rounding add in int32 (wrapping)."""
+    c = _int32_blocks("inv_batch", c)
+    h, w = c.shape[-2:]
+    s1, s2 = _inv_params(w, h, type_hor, type_ver, bitdepth)
+    mh = device_matrix(type_hor, w, str(c.device)).long()
+    mv = device_matrix(type_ver, h, str(c.device)).long()
+    cb = c.reshape(-1, h, w)
+    out = torch.empty(cb.shape, dtype=torch.int16, device=c.device)
+    step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
+    for b0 in range(0, cb.shape[0], step):
+        blk = cb[b0:b0 + step].long()
+        u = (_wrap(_imatmul(mv.T, blk) + (1 << (s1 - 1)), 32) >> s1) \
+            .clamp(-32768, 32767)
+        r = (_wrap(_imatmul(u, mh) + (1 << (s2 - 1)), 32) >> s2) \
+            .clamp(-32768, 32767)
+        out[b0:b0 + step] = r
+    return out.reshape(c.shape)
+
+
+def _launch_transform(name: str, x: torch.Tensor, type_hor: int,
+                      type_ver: int, *params: int) -> torch.Tensor:
+    h, w = x.shape[-2:]
+    x = x.contiguous()
+    dev = kernels.check_cuda(name, x)
+    out = torch.empty(x.shape, dtype=torch.int16, device=dev)
+    B = x.numel() // (h * w)
+    if B:
+        kernels.launch(name, dev, x.data_ptr(), B, w, h,
+                       device_matrix(type_hor, w, str(dev)).data_ptr(),
+                       device_matrix(type_ver, h, str(dev)).data_ptr(),
+                       *params, out.data_ptr())
+    return out
+
+
+def fwd_batch(x: torch.Tensor, type_hor: int = DCT2, type_ver: int = DCT2,
+              bitdepth: int = 8) -> torch.Tensor:
+    """K13 forward: fwd_batch_plain on the CPU, the CUDA kernel on the
+    card."""
+    if x.device.type == "cpu":
+        return fwd_batch_plain(x, type_hor, type_ver, bitdepth)
+    x = _int32_blocks("fwd_batch", x)
+    h, w = x.shape[-2:]
+    params = _fwd_params(w, h, type_hor, type_ver, bitdepth)
+    return _launch_transform("fwd_transform", x, type_hor, type_ver, *params)
+
+
+def inv_batch(c: torch.Tensor, type_hor: int = DCT2, type_ver: int = DCT2,
+              bitdepth: int = 8) -> torch.Tensor:
+    """K13 inverse: inv_batch_plain on the CPU, the CUDA kernel on the
+    card."""
+    if c.device.type == "cpu":
+        return inv_batch_plain(c, type_hor, type_ver, bitdepth)
+    c = _int32_blocks("inv_batch", c)
+    h, w = c.shape[-2:]
+    params = _inv_params(w, h, type_hor, type_ver, bitdepth)
+    return _launch_transform("inv_transform", c, type_hor, type_ver, *params)
