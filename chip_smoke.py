@@ -13,8 +13,13 @@ Phases, one line each (or a few), any failure exits non-zero:
      version on the same card inputs (the frame, random and edge inputs at
      8 and 10 bits, and K1 with a separate reference plane): integer
      outputs equal, rd costs equal (both sides run the same float32
-     operations in the same order: tolerance 0). Times from CUDA events,
-     launches per frame and the least time the card could take (bytes over
+     operations in the same order: tolerance 0); K2 and K4 also at the
+     BT/TT shapes 32x8, 8x32, 64x16, 16x64, 4x16 and 16x4 (K2 over all 67
+     modes and the 35 of the rough search, K4 over 67, 35, 16 and 12
+     candidates, on the class grid, on one block and on 37 blocks, and at
+     the largest residual). Times from CUDA events over 20 calls (and,
+     for K1-K4, over 20 calls captured in a CUDA graph and replayed: their
+     device time without the host's launch path), launches per frame and the least time the card could take (bytes over
      3.35 TB/s or operations over 67 T/s);
   4. the same for the inter kernels at 832x480: K5 pseudo_recon (frame,
      random and edge planes, 8 and 10 bits, three QPs), K7 frame_inter (one
@@ -140,6 +145,14 @@ INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
 TR_KERNELS = ("fwd_transform", "inv_transform", "quant_levels",
               "dequant_levels")
 TR_QPS = (0, 22, 27, 37)      # qp_scaled of phase 4d, and the largest
+# the BT/TT child shapes of the lattice K2 and K4 are also held at (phase 3)
+LATTICE_SHAPES = ((32, 8), (8, 32), (64, 16), (16, 64), (4, 16), (16, 4))
+# the earlier designs' per-class times, printed beside the new ones: my chip
+# run 2 of PR 5 (NVIDIA H100 80GB HBM3, 700.00 W), ms per 832x480 frame
+PR5_MS = {("predict67", 64): 0.1222, ("predict67", 32): 0.1266,
+          ("predict67", 16): 0.1241, ("predict67", 8): 0.1336,
+          ("rd_cost", 64): 0.1355, ("rd_cost", 32): 0.0367,
+          ("rd_cost", 16): 0.0506, ("rd_cost", 8): 0.0529}
 # the path whose run gives each kernel's "launches" in the JSON line
 MAIN_PATH = {**dict.fromkeys(INTRA_KERNELS, "all-intra"),
              "pseudo_recon": "low-delay", "rd_cost_pred": "dense RA",
@@ -254,6 +267,33 @@ def time_ms(torch, fn, n: int) -> float:
     return t0.elapsed_time(t1) / n
 
 
+def graph_ms(torch, fn, n: int, reps: int = 5) -> float:
+    """Device time of one call: n calls captured in a CUDA graph and the
+    graph replayed, so the host's launch path between calls is not timed
+    (for wrappers that only allocate their outputs and launch)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / (n * reps)
+    del g
+    return ms
+
+
 def dct_ops(n: int) -> int:
     """Operations of one n-point integer DCT-II as a partial butterfly
     (the form VVC's integer matrices allow): n adds/subtracts, the odd
@@ -306,8 +346,9 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
                    for i, (kw_, kh_) in enumerate(kw["keep"]))
         return 2 * B * hw * 4 + 5 * (w * w + h * h) + 16 + B * 9, B * ops_
     if name == "predict67":
-        # M = 67, or a mode subset (its list read too)
-        tables = M * hw * 12 + M * 8 + (w + h) * 4 + (M * 4 if M < 67 else 0)
+        # the references and one 64-byte descriptor per mode in, the
+        # predictions out (M = 67, or a mode subset, its list read too)
+        tables = M * 64 + (M * 4 if M < 67 else 0)
         return B * 780 * 4 + tables + B * M * hw * 4, B * M * hw * 12
     if name == "predict_modes":
         # the references and the mode lists in, the [67, h*w] tables read
@@ -369,9 +410,16 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
     # a forward and an inverse 2-D transform of a w x h block
     tr_ops = 2 * (h * dct_ops(w) + w * dct_ops(h))
     if name == "rd_cost":
-        # satds, the winning prediction and the source in; 12 B out
+        # satds, the winning prediction and the source in; 12 B out. Per
+        # block: the M costs (a conversion, a multiply, an add, a compare),
+        # the residual, the two transforms, per coefficient the quantiser
+        # (|c|, a multiply-add, a shift, a clip, the bucket count) and the
+        # dequantiser (a multiply-add, a shift, a clip), per sample the
+        # reconstruction and the SSD (an add, a clip, a subtract, a
+        # multiply-add); the bits and rd, a few operations
         return (B * M * 4 + 2 * B * hw * 4 + w * w + h * h + M * 4 + 16
-                + B * 12, B * tr_ops)
+                + B * 12, B * (M * 4 + hw + tr_ops + hw * 7 + hw * 4
+                               + hw * 6 + 10))
     if name == "rd_cost_pred":
         # prediction, source, extra bits in; rd out; K4's transforms
         return 2 * B * hw * 4 + B * 4 + w * w + h * h + 16 + B * 4, B * tr_ops
@@ -541,6 +589,9 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
     err = dict.fromkeys(REPLACES, 0.0)
     ms = dict.fromkeys(REPLACES, 0.0)
+    # device time from graph replay, for the all-intra kernels (their
+    # wrappers only allocate and launch); the others stay None
+    dev_ms = dict.fromkeys(REPLACES)
     plain_ms = dict.fromkeys(REPLACES, 0.0)
     library_ms = dict.fromkeys(REPLACES)
     bytes_ = dict.fromkeys(REPLACES, 0)
@@ -563,15 +614,22 @@ def main() -> int:
         # rows in the JSON line stay the 67-mode times of the all-intra path)
         k_ms = time_ms(torch, kern, n_kern)
         p_ms = time_ms(torch, plain, n_plain)
+        g_ms = graph_ms(torch, kern, n_kern) if name in INTRA_KERNELS else None
         b, o = work(name, **kw)
         if account:
+            if g_ms is not None:
+                dev_ms[name] = (dev_ms[name] or 0.0) + g_ms
             ms[name] += k_ms
             plain_ms[name] += p_ms
             bytes_[name] += b
             ops[name] += o
         bound = max(b / HBM_BYTES_PER_S, o / OPS_PER_S) * 1e3
-        print(f"  {name} {label}: {k_ms:.4f} ms kernel, {p_ms:.4f} ms "
-              f"plain, bound {bound:.4f} ms ({b} B, {o} ops)", flush=True)
+        before = PR5_MS.get((name, kw["w"])) if kw["w"] == kw["h"] else None
+        print(f"  {name} {label}: {k_ms:.4f} ms kernel"
+              + ("" if g_ms is None else f" ({g_ms:.4f} ms device, graph)")
+              + f", {p_ms:.4f} ms plain, bound {bound:.4f} ms ({b} B, {o} ops)"
+              + ("" if before is None or not account
+                 else f"; PR 5 design {before:.4f} ms"), flush=True)
 
     frame_src = torch.from_numpy(frames[0][0]).to(dev)
     pseudo0 = pr.pseudo_recon(frame_src, LD_QP, 8)
@@ -659,6 +717,46 @@ def main() -> int:
         timed("rd_cost", lambda: rc.rd_cost(*rd_args),
               lambda: rc.rd_cost_plain(*rd_args), f"{w}x{h}", **shape)
         del refs, blocks, preds, satds, rd_args
+    # K2 and K4 at the BT/TT shapes: the class grid, one block and 37
+    # blocks (not a multiple of K4's blocks per thread block), all 67 modes
+    # and the rough search's 35, K4 over 67, 35, 16 and 12 candidates
+    m35 = rough_modes("cuda")
+    for (w, h) in LATTICE_SHAPES:
+        g = (0, 0, w, h, W // w, H // h)
+        for bd in (8, 10):
+            mx = (1 << bd) - 1
+            tabs = device_tables(w, h, bd, "cuda")
+            for tag, src in class_planes(bd).items():
+                what = f"{w}x{h} {bd}-bit {tag}"
+                refs, blocks = ib.refs_blocks_grid(src, w, h, g)
+                for mtag, ml in (("M=67", None), ("M=35", m35)):
+                    preds = ib.predict67(refs, tabs, ml)
+                    same("predict67", f"{what} {mtag}", preds,
+                         ib.predict67_plain(refs, tabs, ml))
+                preds = ib.predict67(refs, tabs)
+                pairs = [("", preds, blocks)]
+                if tag == "edge":
+                    pairs.append((" max", torch.zeros_like(preds),
+                                  torch.full_like(blocks, mx)))
+                ft = frame_tables(22, "cuda")
+                lam = float(np.float32(qp_to_lambda(22)))
+                for ptag, pp, bb in pairs:
+                    for M_ in (67, 35, 16, 12):
+                        mb = (ft["mode_bits"][:M_].contiguous() if M_ >= 35
+                              else mip_mode_bits(M_, "cuda"))
+                        for nb in (pp.shape[0], 1, 37):
+                            p_ = pp[:nb, :M_].contiguous()
+                            b_ = bb[:nb].contiguous()
+                            satds = ib.satd67(p_, b_)
+                            args = (p_, b_, satds, 22 + 6 * (bd - 8), lam,
+                                    ft["wts"], mb, tabs, bd)
+                            for o, (a, b) in zip(
+                                    ("best", "rd", "satd"),
+                                    zip(rc.rd_cost(*args),
+                                        rc.rd_cost_plain(*args))):
+                                same("rd_cost", f"{what}{ptag} M={M_} "
+                                     f"B={nb} {o}", a, b)
+                del refs, blocks, preds, pairs
     print(f"phase 3 intra kernels: {checks} comparisons, all equal",
           flush=True)
 
@@ -1477,7 +1575,8 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": counts[MAIN_PATH[name]][name],
             "max_abs_err": err[name],
-            "ms": ms[name], "plain_ms": plain_ms[name],
+            "ms": ms[name], "device_ms": dev_ms[name],
+            "plain_ms": plain_ms[name],
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms[name],

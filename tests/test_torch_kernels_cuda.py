@@ -66,6 +66,56 @@ def _t(a, dev):
 
 
 @pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("w,h", [(32, 8), (8, 32), (64, 16), (16, 64),
+                                 (4, 16), (16, 4), (64, 64), (8, 8)])
+def test_redesigned_k2_k4_equal_plain(card, w, h, bd):
+    """K2 (per-mode descriptors) and K4 (partial butterflies, several blocks
+    per thread block) at the BT/TT shapes and two squares: B = 1, 7 and 37
+    (not a multiple of K4's blocks per thread block), all 67 modes and the
+    35 of the rough search, K4 over 67, 35, 16 and 12 candidates, random and
+    edge references (zero, maximum, checkerboard), and the largest
+    residual (zero predictions, source at the maximum)."""
+    rng = np.random.default_rng(w * 1000 + h * 10 + bd)
+    mx = (1 << bd) - 1
+    tabs = tb.device_tables(w, h, bd, "cuda")
+    m35 = tb.rough_modes("cuda")
+    n = 0
+    before = dict(kernels.LAUNCHES)
+    for B in (1, 7, 37):
+        refs = rng.integers(0, mx + 1, (B, 780)).astype(np.int32)
+        if B > 3:
+            refs[1], refs[2] = 0, mx
+            refs[3] = (np.arange(780) % 2) * mx
+        refs = _t(refs, card)
+        blocks = _t(rng.integers(0, mx + 1, (B, h, w)).astype(np.int32), card)
+        for ml in (None, m35):
+            assert torch.equal(ib.predict67(refs, tabs, ml),
+                               ib.predict67_plain(refs, tabs, ml))
+            n += 1
+        preds = ib.predict67_plain(refs, tabs)
+        pairs = [(preds, blocks), (torch.zeros_like(preds),
+                                   torch.full_like(blocks, mx))]
+        for pp, bb in pairs:
+            for M in (67, 35, 16, 12):
+                p_ = pp[:, :M].contiguous()
+                satds = ib.satd67_plain(p_, bb)
+                for qp in (22, 37):
+                    ft = tb.frame_tables(qp, "cuda")
+                    mb = (ft["mode_bits"][:M].contiguous() if M >= 35
+                          else tb.mip_mode_bits(M, "cuda"))
+                    args = (p_, bb, satds, qp + 6 * (bd - 8), 57.9,
+                            ft["wts"], mb, tabs, bd)
+                    for a, b in zip(rd.rd_cost(*args),
+                                    rd.rd_cost_plain(*args)):
+                        assert a.dtype == b.dtype and torch.equal(a, b)
+                    n += 1
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {
+        "predict67": 6, "rd_cost": n - 6}
+
+
+@pytest.mark.parametrize("bd", [8, 10])
 def test_inter_kernels_equal_plain(card, bd):
     """K1 with a separate reference plane, K5 pseudo_recon, K6
     rd_cost_pred, K7 frame_inter and K8 leaf_qpel (K6 and K7 at 8 bits,

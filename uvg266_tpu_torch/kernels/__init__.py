@@ -40,10 +40,8 @@ SIGNATURES = {
     # src, refsrc, F, H, W, w, h, x0, y0, sx, sy, gx, gy, refs, blocks
     "refs_blocks_grid": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P],
-    # refs, B, w, h, max_pix, K, W, pdpc_wl, pdpc_sidx, hv_wl, hv_sidx,
-    # needs_clip, pdpc_on, hv_on, hv_topleft, pd_wl, pd_wt, modes (or
-    # null), M, preds
-    "predict67": [_P, _I, _I, _I, _I] + [_P] * 12 + [_P, _I, _P] + [_P],
+    # refs, B, w, h, max_pix, desc, ext_max, modes (or null), M, preds
+    "predict67": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P],
     # preds, src, B, M, w, h, out
     "satd67": [_P, _P, _I, _I, _I, _I, _P, _P],
     # preds, src, satds, B, M, w, h, mat_w, mat_h, wts, mode_bits,

@@ -179,11 +179,12 @@ def get_lib():
         # upload DCT2 matrices + scan tables once
         from ..ops.scan import cg_scan_table, coeff_scan_table
         from ..ops.tr_matrices import DCT2 as _DCT2_T, get_matrix
-        for lg in (2, 3, 4, 5):
+        for lg in (2, 3, 4, 5, 6):
             m = np.ascontiguousarray(get_matrix(_DCT2_T, 1 << lg),
                                      dtype=np.int16)
             lib.rc_set_dct2(lg, m.ctypes.data)
             _DCT_KEEP.append(m)
+        for lg in (2, 3, 4, 5):
             sq = np.ascontiguousarray(coeff_scan_table(lg, lg),
                                       dtype=np.int32)
             cg = np.ascontiguousarray(cg_scan_table(lg, lg), dtype=np.int32)

@@ -48,8 +48,10 @@ const int32_t QUANT_SCALES[2][6] = {
 const int32_t INV_QUANT_SCALES[2][6] = {
     {40, 45, 51, 57, 64, 72}, {57, 64, 72, 80, 90, 102}};
 
-// DCT2 matrices set from Python (tr_matrices), indexed by log2(size)-2
-int16_t g_dct2[4][32 * 32];
+// DCT2 matrices set from Python (tr_matrices), indexed by log2(size)-2,
+// sizes 4-64: rd_roundtrip takes 64x64 prediction blocks (the host screen
+// and host-ME rd_cost_pred), a full 64-point DCT2 with no zero-out
+int16_t g_dct2[5][64 * 64];
 // grouped diagonal scan tables indexed by [log2(w)-2][log2(h)-2]
 // (rectangular TUs from BT/TT splits scan differently from squares)
 int32_t g_scan[4][4][32 * 32];

@@ -508,7 +508,8 @@ def refs_blocks(src: torch.Tensor, xs, ys, w: int, h: int):
     return refs, blocks
 
 
-# the per-mode tables of the angular modes, in the kernels' argument order
+# the per-mode tables of the angular modes, in K12b's argument order (K2
+# reads the per-mode descriptors of ops.tables.mode_descriptors instead)
 _ANG_KEYS = ("K", "W", "pdpc_wl", "pdpc_sidx", "hv_wl", "hv_sidx",
              "needs_clip", "pdpc_on", "hv_on", "hv_topleft")
 
@@ -602,13 +603,14 @@ def predict67_plain(refs: torch.Tensor, tables: dict,
 
 def predict67(refs: torch.Tensor, tables: dict,
               modes: torch.Tensor | None = None) -> torch.Tensor:
-    """K2: predict67_plain on the CPU, the CUDA kernel on the card. On the
-    card a mode subset ``modes`` is not read back to be checked: it must
-    start with 0, 1 and list modes 0..66."""
+    """K2: predict67_plain on the CPU, the CUDA kernel on the card. The
+    kernel computes the angular modes from the per-mode descriptors
+    ``tables["desc"]`` (ops.tables.mode_descriptors), not from the
+    per-sample tables. On the card a mode subset ``modes`` is not read back
+    to be checked: it must start with 0, 1 and list modes 0..66."""
     if refs.device.type == "cpu":
         return predict67_plain(refs, tables, modes)
-    keys = _ANG_KEYS + ("pd_wl", "pd_wt")
-    dev = kernels.check_cuda("predict67", refs, *(tables[k] for k in keys),
+    dev = kernels.check_cuda("predict67", refs, tables["desc"],
                              *(() if modes is None else (modes,)))
     _check("predict67", refs, torch.int32, 2)
     if refs.shape[1] != 4 * REF_LEN:
@@ -623,8 +625,8 @@ def predict67(refs: torch.Tensor, tables: dict,
     B = refs.shape[0]
     preds = torch.empty((B, M, h, w), dtype=torch.int32, device=dev)
     kernels.launch("predict67", dev, refs.data_ptr(), B, w, h,
-                   (1 << tables["bitdepth"]) - 1,
-                   *(tables[k].data_ptr() for k in keys),
+                   (1 << tables["bitdepth"]) - 1, tables["desc"].data_ptr(),
+                   tables["ext_max"],
                    None if modes is None else modes.data_ptr(), M,
                    preds.data_ptr())
     return preds

@@ -144,6 +144,9 @@ def rd_cost(preds, src, satds, qp: int, lam: float, wts, mode_bits,
         raise ValueError("rd_cost: expects int32 preds [B, M, h, w], "
                          "src [B, h, w], satds [B, M] and float32 wts [4], "
                          "mode_bits [M]")
+    if preds.data_ptr() % 16 or src.data_ptr() % 16:
+        raise ValueError("rd_cost: preds and src must be 16-byte aligned "
+                         "(the kernel reads them four samples at a time)")
     c = quant_consts(w, h, bitdepth, qp)
     best = torch.empty((B,), dtype=torch.int32, device=dev)
     rd = torch.empty((B,), dtype=torch.float32, device=dev)

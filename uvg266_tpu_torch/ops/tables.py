@@ -4,7 +4,10 @@ The reference has no learned weights: its parameters are these tables,
 built on the host with numpy exactly as the JAX package builds them:
 
 - per size class: the 67-mode prediction tables of build_mode_tables
-  (K, W, pdpc_*, hv_*, pd_*) and the DCT2 matrices of the two sides;
+  (K, W, pdpc_*, hv_*, pd_*), the per-mode descriptors K2 computes its
+  angular samples from (mode_descriptors, with a plain PyTorch emulation
+  of that path for the tests, predict67_desc) and the DCT2 matrices of
+  the two sides;
 - per QP: the fast coefficient-cost weights FAST_COEFF_WTS and the
   quantiser scales QUANT_SCALES / INV_QUANT_SCALES;
 - per MIP size id: the weight matrices of ops.mip_tables;
@@ -31,7 +34,9 @@ import numpy as np
 import torch
 
 from .fast_cost_tables import FAST_COEFF_WTS
-from .intra_batch import build_mode_tables
+from .intra import (CUBIC_FILTER, HOR_VER_DIST_THRES, MODEDISP2INVSAMPLEDISP,
+                    MODEDISP2SAMPLEDISP, PRE_SCALE, wide_angle_correction)
+from .intra_batch import LOG2, NUM_MODES, REF_LEN, build_mode_tables
 from .me import make_mv_penalty, mv_bits_est
 from .mip_tables import MIP_4X4, MIP_8X8, MIP_16X16
 from .quant import INV_QUANT_SCALES, QUANT_SCALES
@@ -56,16 +61,207 @@ NARROW = {"K": np.int16, "W": np.int8, "pdpc_wl": np.int8,
 
 __all__ = ["FAST_COEFF_WTS", "INV_QUANT_SCALES", "MODE_BITS", "MTS_IDX",
            "QUANT_SCALES", "ROUGH_MODES", "class_tables", "device_mts_tables",
+           "mode_descriptors", "predict67_desc",
            "device_mvd_bits", "device_tables", "frame_tables",
            "frac_penalty", "me_penalties", "mip_matrix", "mip_mode_bits",
            "mts_class_tables", "mvd_bits_table", "rough_modes",
            "tables_to_torch"]
 
 
+# the fields of a K2 mode descriptor (csrc/predict67.cu reads the same)
+(D_VERT, D_MAIN, D_SIDE, D_SD, D_INV, D_FILT, D_CLIP, D_PDPC, D_PSCALE,
+ D_PLIM, D_BASE, D_EXTN, D_MAINN, D_MODE) = range(14)
+DESC_N = 16
+FILT_INT, FILT_CUBIC, FILT_GAUSS = 0, 1, 2
+PDPC_NONE, PDPC_GRAD, PDPC_HV = 0, 1, 2
+
+
+def mode_descriptors(w: int, h: int) -> tuple[np.ndarray, int]:
+    """The angular modes of a w x h luma block as K2 computes them: one
+    int32 [DESC_N] descriptor per mode (rows 0 and 1, planar and DC, hold
+    only their mode), and the longest extended main reference a mode reads.
+
+    For mode m >= 2, in the work orientation (rows along the main
+    reference: the block itself for vertical modes, its transpose for
+    horizontal ones; ww columns, hh rows), the extended main reference is
+    ext[p] for p in [0, D_EXTN):
+      sample_disp < 0: base = hh; ext[base + j] = r[main + j] for j < ww + 2
+        (r[0] beyond), ext[base - i] = r[side + min((i*inv + 256) >> 9, hh)]
+        for i in 1..hh;
+      else: base = 0, ext[p] = r[main + min(p, REF_LEN - 1)]
+    (build_mode_tables' ext_idx). Row yy takes deltaInt, deltaFract from
+    (yy + 1) * sample_disp: an integer slope copies ext[base + deltaInt +
+    xx + 1]; a fractional one filters ext[base + deltaInt + xx + t], t < 4,
+    with the cubic row CUBIC_FILTER[deltaFract] or the gauss row
+    (16 - f/2, 32 - f/2, 16 + f/2, f/2), then clips. Gradient PDPC (xx <
+    D_PLIM): v += (wl*(r[side + min(yy + ((256 + (xx+1)*inv) >> 9) + 1,
+    REF_LEN - 1)] - v) + 32) >> 6; hor/ver PDPC: v = clip(v + (wl*(r[side +
+    1 + yy] - r[main]) + 32) >> 6) with the correction for xx < D_PLIM;
+    wl = 32 >> ((2*xx) >> D_PSCALE). Raises if a tap would leave the
+    reference's extended reference, where its table clamps the index."""
+    log2_w, log2_h = LOG2[w], LOG2[h]
+    desc = np.zeros((NUM_MODES, DESC_N), dtype=np.int32)
+    desc[:, D_MODE] = np.arange(NUM_MODES)
+    ext_max = 1
+    for mode in range(2, NUM_MODES):
+        pred_mode = wide_angle_correction(mode, log2_w, log2_h)
+        vertical = pred_mode >= 34
+        mode_disp = pred_mode - 50 if vertical else -(pred_mode - 18)
+        sd = (-1 if mode_disp < 0 else 1) * int(
+            MODEDISP2SAMPLEDISP[abs(mode_disp)])
+        frac = (abs(sd) & 0x1F) != 0
+        smooth, cubic = False, True
+        if not (w == 4 and h == 4):
+            dist = min(abs(pred_mode - 50), abs(pred_mode - 18))
+            if dist > HOR_VER_DIST_THRES[(log2_w + log2_h) >> 1]:
+                if frac:
+                    cubic = False
+                else:
+                    smooth = True
+        top, left = (2, 3) if smooth else (0, 1)
+        main, side = (top, left) if vertical else (left, top)
+        ww, hh = (w, h) if vertical else (h, w)
+        base = hh if sd < 0 else 0
+        ext_len = base + ww + 8 if sd < 0 else ((sd * hh) >> 5) + ww + 8
+        taps = 4 if frac else 1
+        toff = 0 if frac else 1
+        lo = min(base + ((sd * (yy + 1)) >> 5) + toff for yy in range(hh))
+        hi = max(base + ((sd * (yy + 1)) >> 5) + toff for yy in range(hh)) \
+            + ww - 1 + taps - 1
+        if lo < 0 or hi >= ext_len:
+            raise ValueError(f"mode {mode} at {w}x{h}: a tap leaves ext")
+        inv = int(MODEDISP2INVSAMPLEDISP[abs(mode_disp)])
+        scale = min(2, (log2_h if vertical else log2_w)
+                    - int(PRE_SCALE[abs(mode_disp)]))
+        pdpc, pscale, plim = PDPC_NONE, 0, 0
+        ok = True
+        if 1 < pred_mode < 67:
+            if mode_disp < 0:
+                ok = False
+            elif mode_disp > 0:
+                ok = scale >= 0
+        if sd > 0 and ok:
+            pdpc, pscale, plim = PDPC_GRAD, scale, min(3 << scale, ww)
+        elif sd == 0 and ok:
+            sc2 = (log2_w + log2_h - 2) >> 2
+            pdpc, pscale, plim = PDPC_HV, sc2, min(3 << sc2, ww)
+        d = desc[mode]
+        d[D_VERT], d[D_MAIN], d[D_SIDE] = vertical, main * REF_LEN, \
+            side * REF_LEN
+        d[D_SD], d[D_INV] = sd, inv
+        d[D_FILT] = FILT_INT if not frac else (FILT_CUBIC if cubic
+                                               else FILT_GAUSS)
+        d[D_CLIP] = frac
+        d[D_PDPC], d[D_PSCALE], d[D_PLIM] = pdpc, pscale, plim
+        d[D_BASE], d[D_EXTN], d[D_MAINN] = base, hi + 1, ww + 2
+        ext_max = max(ext_max, hi + 1)
+    return desc, ext_max
+
+
+def predict67_desc(refs: torch.Tensor, w: int, h: int, bitdepth: int,
+                   modes=None) -> torch.Tensor:
+    """K2's descriptor path in plain PyTorch, for the tests: refs [B,
+    4*REF_LEN] int32 -> [B, M, h, w] int32, computed as csrc/predict67.cu
+    computes it (mode_descriptors for the angular modes; planar and DC with
+    their PDPC), for all 67 modes or the subset ``modes`` (slots 0 and 1
+    planar and DC). Equal to ops.intra_batch.predict67_plain."""
+    desc, _ext_max = mode_descriptors(w, h)
+    ml = list(range(NUM_MODES)) if modes is None else [int(m) for m in modes]
+    log2_w, log2_h = LOG2[w], LOG2[h]
+    mx = (1 << bitdepth) - 1
+    L = REF_LEN
+    r = refs.long()
+    B = r.shape[0]
+    dev = refs.device
+    out = torch.empty((B, len(ml), h, w), dtype=torch.int32, device=dev)
+    xs = torch.arange(w, device=dev)
+    ys = torch.arange(h, device=dev)
+    sc = (log2_w + log2_h - 2) >> 2
+    pd_wl = 32 >> ((2 * xs) >> sc).clamp(max=31)
+    pd_wt = 32 >> ((2 * ys) >> sc).clamp(max=31)
+    cub = torch.from_numpy(np.asarray(CUBIC_FILTER, dtype=np.int64)).to(dev)
+    for slot, mode in enumerate(ml):
+        d = [int(v) for v in desc[mode]]
+        if mode < 2:
+            if mode == 0:
+                ts, ls = (2, 3) if w * h > 32 else (0, 1)
+                tw = r[:, ts * L + 1 + xs][:, None, :]
+                lh = r[:, ls * L + 1 + ys][:, :, None]
+                tr = r[:, ts * L + w + 1][:, None, None]
+                bl = r[:, ls * L + h + 1][:, None, None]
+                hor = lh * (1 << log2_w) + (tr - lh) * (xs + 1)[None, None]
+                ver = tw * (1 << log2_h) + (bl - tw) * (ys + 1)[None, :, None]
+                v = (hor * (1 << log2_h) + ver * (1 << log2_w)
+                     + (1 << (log2_w + log2_h))) >> (1 + log2_w + log2_h)
+            else:
+                ts, ls = 0, 1
+                s = torch.zeros((B,), dtype=torch.long, device=dev)
+                if w >= h:
+                    s = s + r[:, 1:1 + w].sum(-1)
+                if w <= h:
+                    s = s + r[:, L + 1:L + 1 + h].sum(-1)
+                den = (w << 1) if w == h else max(w, h)
+                dc = (s + (den >> 1)) >> (den.bit_length() - 1)
+                v = dc[:, None, None].expand(B, h, w)
+            tt = r[:, ts * L + 1 + xs][:, None, :]
+            ll = r[:, ls * L + 1 + ys][:, :, None]
+            v = v + ((pd_wl[None, None] * (ll - v)
+                      + pd_wt[None, :, None] * (tt - v) + 32) >> 6)
+            out[:, slot] = v.clamp(0, mx).to(torch.int32)
+            continue
+        vert = bool(d[D_VERT])
+        ww, hh = (w, h) if vert else (h, w)
+        base, sd, inv = d[D_BASE], d[D_SD], d[D_INV]
+        # the extended main reference of every block
+        p = torch.arange(d[D_EXTN], device=dev)
+        if sd < 0:
+            j = p - base
+            idx = torch.where(j < d[D_MAINN], d[D_MAIN] + j,
+                              torch.zeros_like(j))
+            side = d[D_SIDE] + torch.clamp(((base - p) * inv + 256) >> 9,
+                                           max=hh)
+            idx = torch.where(p >= base, idx, side)
+        else:
+            idx = d[D_MAIN] + p.clamp(max=L - 1)
+        ext = r[:, idx]                                   # [B, EXTN]
+        yy = torch.arange(hh, device=dev)[:, None]        # work rows
+        xx = torch.arange(ww, device=dev)[None, :]        # work columns
+        dpos = sd * (yy + 1)
+        d_int, d_fr = dpos >> 5, dpos & 31
+        if d[D_FILT] == FILT_INT:
+            v = ext[:, base + d_int + xx + 1]
+        else:
+            if d[D_FILT] == FILT_CUBIC:
+                wt = cub[d_fr[:, 0]]                       # [hh, 4]
+            else:
+                f = d_fr[:, 0] >> 1
+                wt = torch.stack([16 - f, 32 - f, 16 + f, f], dim=1)
+            p0 = base + d_int + xx
+            v = sum(ext[:, p0 + t] * wt[None, :, t:t + 1] for t in range(4))
+            v = (v + 32) >> 6
+            if d[D_CLIP]:
+                v = v.clamp(0, mx)
+        if d[D_PDPC] != PDPC_NONE:
+            wl = torch.where(xx < d[D_PLIM], 32 >> ((2 * xx) >> d[D_PSCALE]),
+                             torch.zeros_like(xx))
+            if d[D_PDPC] == PDPC_GRAD:
+                sidx = d[D_SIDE] + torch.clamp(
+                    yy + ((256 + (xx + 1) * inv) >> 9) + 1, max=L - 1)
+                v = v + ((wl * (r[:, sidx] - v) + 32) >> 6)
+            else:
+                side = r[:, d[D_SIDE] + 1 + yy]
+                tl = r[:, d[D_MAIN]][:, None, None]
+                v = (v + ((wl * (side - tl) + 32) >> 6)).clamp(0, mx)
+        out[:, slot] = (v if vert else v.transpose(1, 2)).to(torch.int32)
+    return out
+
+
 def class_tables(w: int, h: int, bitdepth: int) -> dict:
-    """numpy tables of one luma size class: build_mode_tables plus the DCT2
+    """numpy tables of one luma size class: build_mode_tables, the K2 mode
+    descriptors (``desc``, ``ext_max``: mode_descriptors) and the DCT2
     matrices of its width (mat_w) and height (mat_h)."""
     t = dict(build_mode_tables(w, h, bitdepth, False))
+    t["desc"], t["ext_max"] = mode_descriptors(w, h)
     t["mat_w"] = get_matrix(DCT2, w)
     t["mat_h"] = get_matrix(DCT2, h)
     return t
