@@ -18,9 +18,10 @@ Phases, one line each (or a few), any failure exits non-zero:
      modes and the 35 of the rough search, K4 over 67, 35, 16 and 12
      candidates, on the class grid, on one block and on 37 blocks, and at
      the largest residual). Times from CUDA events over 20 calls (and,
-     for K1-K4, over 20 calls captured in a CUDA graph and replayed: their
-     device time without the host's launch path), launches per frame and the least time the card could take (bytes over
-     3.35 TB/s or operations over 67 T/s);
+     for K1-K4, K9a and K9b, over 20 calls captured in a CUDA graph and
+     replayed: their device time without the host's launch path), launches
+     per frame and the least time the card could take (bytes over 3.35
+     TB/s or operations over 67 T/s);
   4. the same for the inter kernels at 832x480: K5 pseudo_recon (frame,
      random and edge planes, 8 and 10 bits, three QPs), K7 frame_inter (one
      reference, every inter class of the dense search), K6 rd_cost_pred on
@@ -35,11 +36,14 @@ Phases, one line each (or a few), any failure exits non-zero:
      outputs equal, tolerance 0;
   4c. the kernels of the per-class inter search and of the rough search at
      832x480 (frame, flat and edge planes, 8 and 10 bits): K9a
-     fullpel_search and K9b frac_search at the inter classes of the 10-bit
-     LD path (and K9a on all-max 10-bit planes at every class, 64x64
-     included), K2 over the 35 stage-1 modes, K12b predict_modes (the
-     refine lists and random lists) and the K12c rough_refine chain at
-     every class of the rough path: all outputs equal, tolerance 0;
+     fullpel_search and both forms of K9b frac_search (all 49 predictions;
+     the winner's only, held against the plain gather) at the inter
+     classes of the 10-bit LD path, also with the blocks in reverse
+     order (and on all-max 10-bit planes at every class, 64x64 included),
+     K2 over the 35 stage-1 modes, K12b predict_modes (the refine lists and
+     random lists) and the K12c rough_refine chain at every class of the
+     rough path: all outputs equal, tolerance 0. K9a and both K9b forms are also
+     timed on a CUDA graph of 20 calls, beside the earlier designs' times;
   4d. the batched transforms and quantisers, whose only callers are their
      users (no encode path reaches them, as in the reference): K13
      fwd_transform / inv_transform and K14 quant_levels / dequant_levels
@@ -85,7 +89,7 @@ Phases, one line each (or a few), any failure exits non-zero:
      candidate); the rough path (the all-intra configuration with
      intra_rough, 3 frames: per class K12a, K2 at 35 modes, K3 twice,
      K12b, the two K12c selections and K6); wall fps and device busy time
-     of each;
+     of each, split over every kernel with its launch count;
   8. the card against the CPU (plain versions): all-intra frame 0, the
      first three LD frames (I, P, P), a three-frame clip of the dense path
      (I, P, B), frame 0 of the MIP and MTS paths, the first two frames of
@@ -142,6 +146,9 @@ REPLACES = {
     "dequant_levels": "uvg266_tpu/ops/quant.py:174",
 }
 INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
+# the kernels timed on a CUDA graph too (their wrappers only allocate their
+# outputs and launch)
+GRAPH_KERNELS = INTRA_KERNELS + ("fullpel_search", "frac_search")
 TR_KERNELS = ("fwd_transform", "inv_transform", "quant_levels",
               "dequant_levels")
 TR_QPS = (0, 22, 27, 37)      # qp_scaled of phase 4d, and the largest
@@ -153,6 +160,10 @@ PR5_MS = {("predict67", 64): 0.1222, ("predict67", 32): 0.1266,
           ("predict67", 16): 0.1241, ("predict67", 8): 0.1336,
           ("rd_cost", 64): 0.1355, ("rd_cost", 32): 0.0367,
           ("rd_cost", 16): 0.0506, ("rd_cost", 8): 0.0529}
+# K9a and K9b before their redesign (a thread per offset; a thread block
+# per block and offset), ms per reference at 10 bits (16x16 + 8x8), CUDA
+# events, this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md)
+K9_BEFORE_MS = {"fullpel_search": 0.2907, "frac_search": 1.0524}
 # the path whose run gives each kernel's "launches" in the JSON line
 MAIN_PATH = {**dict.fromkeys(INTRA_KERNELS, "all-intra"),
              "pseudo_recon": "low-delay", "rd_cost_pred": "dense RA",
@@ -368,7 +379,8 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
                      + nn * 5))
     if name == "frac_search":
         # the reference plane, blocks, positions, MVs and penalty in; best,
-        # preds [B, 49, h, w] and costs out. Per block: the horizontal
+        # preds [B, 49, h, w] (the winner form: [B, h, w]) and costs out.
+        # Per block: the horizontal
         # 8-tap pass for the 3 fractional x phases over the h + 8 rows and
         # w + 1 columns the offsets share, the vertical 8-tap pass for the
         # 42 offsets with a fractional y, the SATD of all 49, a penalty add
@@ -376,7 +388,8 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
         n = 8 if (w >= 8 and h >= 8) else 4
         per = (3 * (h + 8) * (w + 1) * 16 + 42 * hw * 16
                + 49 * hw * satd_ops(n) + 49 * 2)
-        return ((H_ * W_ + B * hw + 4 * B + 49 + B * 49 * hw + B * 49 + B)
+        n_pred = 1 if kw.get("winner") else 49
+        return ((H_ * W_ + B * hw + 4 * B + 49 + B * n_pred * hw + B * 49 + B)
                 * 4, B * per)
     if name == "rough_refine":
         # the sum of its stages: K2 over the 35 stage-1 modes, K3, stage 1
@@ -497,8 +510,15 @@ def encode(enc, planes, clip):
     return out
 
 
-def busy_share(torch, run):
-    """Device busy time by kernel over one run under torch.profiler."""
+def kernel_name(name: str) -> str:
+    """A profiler event's name without its namespace and arguments."""
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("(")[0][:60]
+
+
+def busy_share(torch, run, every=False):
+    """Device busy time by kernel over one run under torch.profiler: the
+    eight largest, or every kernel with its launch count (every=True)."""
     prof_act = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=prof_act) as prof:
@@ -506,18 +526,23 @@ def busy_share(torch, run):
         run()
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t0
-    busy = {}
+    busy, calls = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            k = kernel_name(e.name)
+            busy[k] = busy.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+            calls[k] = calls.get(k, 0) + 1
     busy_ms = sum(busy.values())
     if busy_ms <= 0:
         return ("  device busy: not measured (the profiler saw no device "
                 "events)")
-    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(busy.items(), key=lambda kv: -kv[1])
+    if not every:
+        top = top[:8]
     return (f"  device busy {busy_ms:.3f} ms of {pwall * 1e3:.3f} ms "
             f"profiled wall ({busy_ms / (pwall * 1e3):.4f} busy share); "
-            + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top))
+            + "; ".join(f"{k} {v:.3f} ms" + (f" x{calls[k]}" if every else "")
+                        for k, v in top))
 
 
 def main() -> int:
@@ -612,9 +637,10 @@ def main() -> int:
               **kw):
         # account=False: printed only (K3/K4 at a MIP candidate count; their
         # rows in the JSON line stay the 67-mode times of the all-intra path)
+        # -> (kernel ms, graph ms or None, bound ms)
         k_ms = time_ms(torch, kern, n_kern)
         p_ms = time_ms(torch, plain, n_plain)
-        g_ms = graph_ms(torch, kern, n_kern) if name in INTRA_KERNELS else None
+        g_ms = graph_ms(torch, kern, n_kern) if name in GRAPH_KERNELS else None
         b, o = work(name, **kw)
         if account:
             if g_ms is not None:
@@ -630,6 +656,7 @@ def main() -> int:
               + f", {p_ms:.4f} ms plain, bound {bound:.4f} ms ({b} B, {o} ops)"
               + ("" if before is None or not account
                  else f"; PR 5 design {before:.4f} ms"), flush=True)
+        return k_ms, g_ms, bound
 
     frame_src = torch.from_numpy(frames[0][0]).to(dev)
     pseudo0 = pr.pseudo_recon(frame_src, LD_QP, 8)
@@ -991,6 +1018,7 @@ def main() -> int:
     me_cls = [c for c in me_all
               if lo <= (64 // max(c[0], c[1])).bit_length() - 1 <= hi]
     pen_me, fpen = me_penalties(qp_to_lambda(LD_QP, False), R, "cuda")
+    frac_contract = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
     print("phase 4c inter classes: " + ", ".join(
         f"{w}x{h} B={len(p)}" for (w, h, p) in me_cls), flush=True)
 
@@ -1019,9 +1047,17 @@ def main() -> int:
             same("fullpel_search", f"{what} {o}", a, b)
         if frac:
             a_ = (ref_p, blk, xs_d, ys_d, got[0], got[1], fpen, bd)
+            want = me.frac_search_plain(*a_)
             for o, a, b in zip(("best", "preds", "costs"), me.frac_search(*a_),
-                               me.frac_search_plain(*a_)):
+                               want):
                 same("frac_search", f"{what} {o}", a, b)
+            # the winner form against the plain gather
+            gathered = want[1][torch.arange(blk.shape[0], device=dev),
+                               want[0].long()]
+            for o, a, b in zip(("best", "pred", "costs"),
+                               me.frac_search(*a_, winner_only=True),
+                               (want[0], gathered, want[2])):
+                same("frac_search", f"{what} winner {o}", a, b)
         return blk, got
 
     for (w, h, pos) in me_cls:
@@ -1030,6 +1066,12 @@ def main() -> int:
             for tag, (ref_p, src_p) in me_planes(bd).items():
                 me_check(f"{w}x{h} {bd}-bit {tag}", ref_p, src_p, xs_d, ys_d,
                          w, h, bd)
+        # the blocks in reverse order: no two of a thread block side by
+        # side (K9a reads a window each instead of their union)
+        f0, f1 = me_planes(10)["frame"]
+        me_check(f"{w}x{h} 10-bit frame reversed", f0, f1,
+                 xs_d.flip(0).contiguous(), ys_d.flip(0).contiguous(), w, h,
+                 10)
         # times at the 10-bit frame's inputs, once per class
         f0, f1 = me_planes(10)["frame"]
         blk, (mvx, mvy, _c) = me_check(f"{w}x{h} 10-bit frame (timed)", f0,
@@ -1040,17 +1082,34 @@ def main() -> int:
               lambda: me.fullpel_search_plain(f0, blk, xs_d, ys_d, R, pen_me),
               f"{w}x{h} 10-bit", **shape)
         f_args = (f0, blk, xs_d, ys_d, mvx, mvy, fpen, 10)
-        timed("frac_search", lambda: me.frac_search(*f_args),
-              lambda: me.frac_search_plain(*f_args), f"{w}x{h} 10-bit",
-              **shape)
+        # the winner form is the one search_inter_blocks launches: its times
+        # are the row's; the contract form's are kept beside them
+        timed("frac_search",
+              lambda: me.frac_search(*f_args, winner_only=True),
+              lambda: me.frac_search_plain(*f_args), f"{w}x{h} 10-bit winner",
+              winner=True, **shape)
+        c_ms, c_dev, c_bound = timed(
+            "frac_search", lambda: me.frac_search(*f_args),
+            lambda: me.frac_search_plain(*f_args), f"{w}x{h} 10-bit contract",
+            account=False, **shape)
+        for key, v in (("ms", c_ms), ("device_ms", c_dev),
+                       ("bound_ms", c_bound)):
+            frac_contract[key] += v
         del blk, f_args
+    print("  K9 per reference (16x16 + 8x8 at 10 bits, ms): fullpel_search "
+          f"{ms['fullpel_search']:.4f} (device {dev_ms['fullpel_search']:.4f})"
+          f", earlier design {K9_BEFORE_MS['fullpel_search']:.4f}; frac_search "
+          f"winner form {ms['frac_search']:.4f} (device "
+          f"{dev_ms['frac_search']:.4f}), contract form "
+          f"{frac_contract['ms']:.4f} (device "
+          f"{frac_contract['device_ms']:.4f}), earlier design "
+          f"{K9_BEFORE_MS['frac_search']:.4f}", flush=True)
     # K9a's exact sums at their largest: all-max 10-bit planes, every
     # class (4096 * 1023^2 < 2^32 at 64x64)
     mx10 = torch.full((H, W), 1023, dtype=torch.int32, device=dev)
     for (w, h, pos) in me_all:
         xs_d, ys_d = on_card(pos, w, h)
-        me_check(f"{w}x{h} 10-bit all-max", mx10, mx10, xs_d, ys_d, w, h, 10,
-                 frac=False)
+        me_check(f"{w}x{h} 10-bit all-max", mx10, mx10, xs_d, ys_d, w, h, 10)
     # the rough search at every class of the rough path
     m1 = rough_modes("cuda")
     rcfg = rough_config(Config)
@@ -1496,8 +1555,8 @@ def main() -> int:
               f"{sum(len(o[0]) for o in pouts)} bytes, launches "
               + json.dumps(launches), flush=True)
         print(busy_share(torch, lambda: encode(Encoder(pcfg, device=dev),
-                                               FramePlanes, pclip)),
-              flush=True)
+                                               FramePlanes, pclip),
+                         every=True), flush=True)
 
     # --- 8. the card against the CPU ----------------------------------------
     def card_vs_cpu(path, config, got, n, enc_clip):
@@ -1583,6 +1642,9 @@ def main() -> int:
             "path": MAIN_PATH[name] + (" (no encode path reaches it)"
                                        if name in TR_KERNELS else ""),
         })
+        if name == "frac_search":
+            # the row is the winner form's (the one the path launches)
+            rows[-1]["contract_form"] = dict(frac_contract)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

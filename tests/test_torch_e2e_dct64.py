@@ -12,13 +12,12 @@ process can die with SIGSEGV; the port's table holds the 64-point matrix
 On this clip 64x64 candidates decide the P slices: from the first P slice on
 the reference's bytes are undefined, a documented difference (ROADMAP,
 queue 3). The test holds what is defined: the I slice, which no 64x64 host
-cost reaches, is byte-identical to the reference's, and with
-``host_intra_screen`` every access unit of the port decodes through the
-port's oracle, with its references, to the port's reconstruction. With
-``pu_depth_inter=(0, 3)`` the oracle cannot follow: its inter
-reconstruction (control/encoder.py reconstruct_inter_cu, a copy of the
-reference's) applies one inverse transform to a 64x64 inter CU with a coded
-residual, which VVC codes as four 32x32 TUs (ROADMAP, queue 3).
+cost reaches, is byte-identical to the reference's, and in both cases every
+access unit of the port decodes through the port's oracle, with its
+references, to the port's reconstruction. With ``pu_depth_inter=(0, 3)``
+that takes 64x64 inter CUs with a coded residual, which the port's
+reconstruct_inter_cu codes and reconstructs as four 32x32 TUs (the
+reference's raises there: ROADMAP, queue 3).
 
 The reference encodes in a child process, so that its fault cannot take the
 test process down. A child that dies by a signal is run again, up to three
@@ -42,12 +41,12 @@ from uvg266_tpu_torch.oracle.decoder import decode_au
 
 W, H, N = 128, 128, 5
 LD = dict(qp=30, gop_len=4, gop_lowdelay=True, gop_lp_d=3, gop_lp_t=1)
-# config, the native entry that costs 64x64 blocks, oracle check
+# config, the native entry that costs 64x64 blocks
 CASES = {
     "host_intra_screen": ({**LD, "host_intra_screen": True},
-                          "host_screen_native", True),
+                          "host_screen_native"),
     "pu_depth_inter_0_3": ({**LD, "pu_depth_inter": (0, 3)},
-                           "me_frame_native", False),
+                           "me_frame_native"),
 }
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -113,7 +112,7 @@ def _reference(kw):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_64x64_host_paths_against_reference(case):
-    kw, entry, oracle = CASES[case]
+    kw, entry = CASES[case]
     ref = _reference(kw)
 
     widths = []
@@ -144,8 +143,6 @@ def test_64x64_host_paths_against_reference(case):
     assert fs.slicetype == SliceType.I and au == rau
     for p, rp in (("y", ry), ("u", ru), ("v", rv)):
         np.testing.assert_array_equal(getattr(rec, p), rp)
-    if not oracle:
-        return
     # every access unit decodes, with its references, to the port's recon
     dpb = {}
     for (au, rec, fs, _rl, _src) in got:

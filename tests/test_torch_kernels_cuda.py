@@ -278,6 +278,71 @@ def test_me_kernels_equal_plain(card, w, h, bd):
         "fullpel_search": 1, "frac_search": 1}
 
 
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("h", [4, 8, 16, 32, 64])
+def test_redesigned_k9_equal_plain(card, w, h):
+    """K9a (box-sum r2, register-tiled corr, several blocks or split rows
+    per thread block) and both forms of K9b (all 49 predictions; the
+    winner's only, against the plain gather) at every (w, h) in {4..64}^2:
+    B = 1 and 9 (not a multiple of the blocks per thread block) at random
+    positions, and the plane's grid of blocks (side by side, as a class
+    lies: K9a reads one union window), 8 and 10 bits (K9b also 12), random
+    planes, all-max planes (K9a's exact sums at their largest: 4096 *
+    1023^2 < 2^32) and blocks at the plane's edges."""
+    from uvg266_tpu_torch.ops import me
+    rng = np.random.default_rng(w * 100 + h)
+    r = 16
+    H, W = 2 * h + 40, 3 * w + 40
+    pen, fpen = tb.me_penalties(57.9, r, "cuda")
+    n = {"fullpel_search": 0, "frac_search": 0}
+    before = dict(kernels.LAUNCHES)
+    for bd in (8, 10, 12):
+        mx = (1 << bd) - 1
+        for tag in ("rand", "max"):
+            ref = rng.integers(0, mx + 1, (H, W)).astype(np.int32)
+            src = np.roll(ref, (3, 5), (0, 1)) + rng.integers(-2, 3, (H, W))
+            if tag == "max":
+                ref[:], src[:] = mx, mx
+            src = np.clip(src, 0, mx).astype(np.int32)
+            grid = [(x, y) for y in range(0, H - h + 1, h)
+                    for x in range(0, W - w + 1, w)]
+            for B in (1, 9, len(grid)):
+                xs = rng.integers(0, W - w + 1, B).astype(np.int32)
+                ys = rng.integers(0, H - h + 1, B).astype(np.int32)
+                xs[0], ys[0] = W - w, H - h
+                if B == len(grid):             # side by side, as a class
+                    xs = np.array([p[0] for p in grid], dtype=np.int32)
+                    ys = np.array([p[1] for p in grid], dtype=np.int32)
+                blocks = np.stack([src[y:y + h, x:x + w]
+                                   for x, y in zip(xs, ys)])
+                rd_, bd_, xd, yd = (_t(a, card)
+                                    for a in (ref, blocks, xs, ys))
+                if bd <= 10:
+                    got = me.fullpel_search(rd_, bd_, xd, yd, r, pen, bd)
+                    for a, b in zip(got, me.fullpel_search_plain(
+                            rd_, bd_, xd, yd, r, pen)):
+                        assert a.dtype == b.dtype and torch.equal(a, b)
+                    n["fullpel_search"] += 1
+                    mvx, mvy = got[0], got[1]
+                else:
+                    mvx = _t(rng.integers(-r, r + 1, B).astype(np.int32), card)
+                    mvy = _t(rng.integers(-r, r + 1, B).astype(np.int32), card)
+                a_ = (rd_, bd_, xd, yd, mvx, mvy, fpen, bd)
+                want = me.frac_search_plain(*a_)
+                for a, b in zip(me.frac_search(*a_), want):
+                    assert a.dtype == b.dtype and torch.equal(a, b)
+                wbest, wpred, wcost = me.frac_search(*a_, winner_only=True)
+                assert torch.equal(wbest, want[0])
+                assert torch.equal(wcost, want[2])
+                assert torch.equal(
+                    wpred, want[1][torch.arange(B, device=card),
+                                   want[0].long()])
+                n["frac_search"] += 2
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == n
+
+
 @pytest.mark.parametrize("w,h,bd", [(4, 4, 8), (8, 8, 10), (16, 16, 8),
                                     (32, 16, 10), (64, 64, 8)])
 def test_rough_kernels_equal_plain(card, w, h, bd):

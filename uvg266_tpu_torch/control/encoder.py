@@ -886,6 +886,58 @@ def reconstruct_intra_cu(cu: CuInfo, planes_rec: FramePlanes,
                     planes_rec.y[ty:ty + th, tx:tx + tw] = rec0
 
 
+def _inter_residual(cu: CuInfo, color: int, pred: np.ndarray,
+                    plane_src: np.ndarray | None, plane_rec: np.ndarray,
+                    x0: int, y0: int, qp_scaled: int, ctrl: EncoderControl,
+                    signhide: bool, rdoq_lam: float, lmcs_adj: int = 0) -> None:
+    """The residual round trip of one colour component of an inter CU,
+    whose prediction ``pred`` sits at (x0, y0) of ``plane_rec``. A CU wider
+    or taller than TR_MAX_WIDTH is coded as its implicit TUs (luma at most
+    TR_MAX_WIDTH square, chroma half of that in 4:2:0; keys (color, i, j)
+    by TU column and row), as the transform tree writes and parses them
+    (hls/coding_tree.py encode_transform_coeff) and native/recon.cpp
+    recon_intra_leaf splits an intra leaf. Encoder mode (plane_src given)
+    sets cu.cbf and cu.coeffs per TU; decoder mode reconstructs from
+    them."""
+    bd = ctrl.bitdepth
+    dep_q = bool(ctrl.cfg.dep_quant)
+    sub = 0 if color == COLOR_Y else 1
+    tw = min(cu.w, TR_MAX_WIDTH) >> sub
+    th = min(cu.h, TR_MAX_WIDTH) >> sub
+    h, w = pred.shape
+    for j in range(h // th):
+        for i in range(w // tw):
+            key = (color, i, j)
+            ys, xs = slice(j * th, (j + 1) * th), slice(i * tw, (i + 1) * tw)
+            p = pred[ys, xs]
+            qmat = _qm(ctrl, tw, th, color, False)
+            if plane_src is not None:
+                q, rec, cbf = transform_quant_recon(
+                    plane_src[y0:y0 + h, x0:x0 + w][ys, xs], p, qp_scaled,
+                    bd, is_intra_slice=False, signhide=signhide,
+                    rdoq_lam=rdoq_lam, dep_quant=dep_q, qmat=qmat,
+                    lmcs_adj=lmcs_adj)
+                cu.cbf[key] = cbf
+                if cbf:
+                    cu.coeffs[key] = q
+            elif cu.cbf_set(*key):
+                if dep_q:
+                    from ..ops.depquant import dequant_dep
+                    dq = dequant_dep(cu.coeffs[key], qp_scaled, bd)
+                else:
+                    dq = dequant(cu.coeffs[key], qp_scaled, bd, qmat=qmat)
+                r = inv_transform_2d(dq, bitdepth=bd)
+                if lmcs_adj:
+                    from ..ops.lmcs import scale_chroma_residual_inv
+                    r = scale_chroma_residual_inv(r, lmcs_adj, bd)
+                rec = np.clip(p.astype(np.int64) + r, 0,
+                              (1 << bd) - 1).astype(np.int32)
+            else:
+                rec = p
+            plane_rec[y0 + j * th:y0 + (j + 1) * th,
+                      x0 + i * tw:x0 + (i + 1) * tw] = rec
+
+
 def reconstruct_inter_cu(cu: CuInfo, planes_rec: FramePlanes,
                          coded_mask: np.ndarray, ctrl: EncoderControl,
                          qp: int, refs: list,
@@ -918,7 +970,6 @@ def reconstruct_inter_cu(cu: CuInfo, planes_rec: FramePlanes,
         mv = cu.mv[0]
     qp_y = ctrl.luma_qp_scaled(qp)
     qp_c = ctrl.chroma_qp_scaled(qp)
-    dep_q = bool(ctrl.cfg.dep_quant)
     if bipred:
         pred = mc_luma_bi(ref.y, ref1.y, cu.x, cu.y, cu.w, cu.h, mv, mv1, bd)
     else:
@@ -927,28 +978,9 @@ def reconstruct_inter_cu(cu: CuInfo, planes_rec: FramePlanes,
         # fwdMap the inter luma prediction into the reshaped domain
         # (inter.c inter_recon under sliceReshaperEnableFlag)
         pred = lmcs.luts.fwd_lut[pred]
-    if planes_src is not None:
-        q, rec, cbf = transform_quant_recon(
-            planes_src.y[cu.y:cu.y + cu.h, cu.x:cu.x + cu.w], pred, qp_y, bd,
-            is_intra_slice=False, signhide=signhide, rdoq_lam=rdoq_lam,
-            dep_quant=dep_q, qmat=_qm(ctrl, cu.w, cu.h, COLOR_Y, False))
-        cu.cbf[(COLOR_Y, 0, 0)] = cbf
-        if cbf:
-            cu.coeffs[(COLOR_Y, 0, 0)] = q
-    else:
-        if cu.cbf_set(COLOR_Y):
-            if dep_q:
-                from ..ops.depquant import dequant_dep
-                dq = dequant_dep(cu.coeffs[(COLOR_Y, 0, 0)], qp_y, bd)
-            else:
-                dq = dequant(cu.coeffs[(COLOR_Y, 0, 0)], qp_y, bd,
-                             qmat=_qm(ctrl, cu.w, cu.h, COLOR_Y, False))
-            r = inv_transform_2d(dq, bitdepth=bd)
-            rec = np.clip(pred.astype(np.int64) + r, 0,
-                          (1 << bd) - 1).astype(np.int32)
-        else:
-            rec = pred
-    planes_rec.y[cu.y:cu.y + cu.h, cu.x:cu.x + cu.w] = rec
+    _inter_residual(cu, COLOR_Y, pred,
+                    planes_src.y if planes_src is not None else None,
+                    planes_rec.y, cu.x, cu.y, qp_y, ctrl, signhide, rdoq_lam)
     coded_mask[cu.y // 4:(cu.y + cu.h) // 4,
                cu.x // 4:(cu.x + cu.w) // 4] = True
 
@@ -966,32 +998,8 @@ def reconstruct_inter_cu(cu: CuInfo, planes_rec: FramePlanes,
                                   mv, mv1, bd)
         else:
             pred_c = mc_chroma(plane_ref, cx, cy, cw, ch, mv, bd)
-        if planes_src is not None:
-            q, rec_c, cbf = transform_quant_recon(
-                plane_src[cy:cy + ch, cx:cx + cw], pred_c, qp_c, bd,
-                is_intra_slice=False, signhide=signhide, rdoq_lam=rdoq_lam,
-                dep_quant=dep_q, qmat=_qm(ctrl, cw, ch, color, False),
-                lmcs_adj=lmcs_adj)
-            cu.cbf[(color, 0, 0)] = cbf
-            if cbf:
-                cu.coeffs[(color, 0, 0)] = q
-        else:
-            if cu.cbf_set(color):
-                if dep_q:
-                    from ..ops.depquant import dequant_dep
-                    dq = dequant_dep(cu.coeffs[(color, 0, 0)], qp_c, bd)
-                else:
-                    dq = dequant(cu.coeffs[(color, 0, 0)], qp_c, bd,
-                                 qmat=_qm(ctrl, cw, ch, color, False))
-                r = inv_transform_2d(dq, bitdepth=bd)
-                if lmcs_adj:
-                    from ..ops.lmcs import scale_chroma_residual_inv
-                    r = scale_chroma_residual_inv(r, lmcs_adj, bd)
-                rec_c = np.clip(pred_c.astype(np.int64) + r, 0,
-                                (1 << bd) - 1).astype(np.int32)
-            else:
-                rec_c = pred_c
-        plane_rec[cy:cy + ch, cx:cx + cw] = rec_c
+        _inter_residual(cu, color, pred_c, plane_src, plane_rec, cx, cy, qp_c,
+                        ctrl, signhide, rdoq_lam, lmcs_adj)
 
 
 def reconstruct_ibc_cu(cu: CuInfo, planes_rec: FramePlanes,
@@ -1014,28 +1022,9 @@ def reconstruct_ibc_cu(cu: CuInfo, planes_rec: FramePlanes,
     qp_y = ctrl.luma_qp_scaled(qp)
     qp_c = ctrl.chroma_qp_scaled(qp)
     dep_q = bool(ctrl.cfg.dep_quant)
-    if planes_src is not None:
-        q, rec, cbf = transform_quant_recon(
-            planes_src.y[cu.y:cu.y + cu.h, cu.x:cu.x + cu.w], pred, qp_y, bd,
-            is_intra_slice=False, signhide=signhide, rdoq_lam=rdoq_lam,
-            dep_quant=dep_q, qmat=_qm(ctrl, cu.w, cu.h, COLOR_Y, False))
-        cu.cbf[(COLOR_Y, 0, 0)] = cbf
-        if cbf:
-            cu.coeffs[(COLOR_Y, 0, 0)] = q
-    else:
-        if cu.cbf_set(COLOR_Y):
-            if dep_q:
-                from ..ops.depquant import dequant_dep
-                dq = dequant_dep(cu.coeffs[(COLOR_Y, 0, 0)], qp_y, bd)
-            else:
-                dq = dequant(cu.coeffs[(COLOR_Y, 0, 0)], qp_y, bd,
-                             qmat=_qm(ctrl, cu.w, cu.h, COLOR_Y, False))
-            r = inv_transform_2d(dq, bitdepth=bd)
-            rec = np.clip(pred.astype(np.int64) + r, 0,
-                          (1 << bd) - 1).astype(np.int32)
-        else:
-            rec = pred
-    planes_rec.y[cu.y:cu.y + cu.h, cu.x:cu.x + cu.w] = rec
+    _inter_residual(cu, COLOR_Y, pred,
+                    planes_src.y if planes_src is not None else None,
+                    planes_rec.y, cu.x, cu.y, qp_y, ctrl, signhide, rdoq_lam)
     coded_mask[cu.y // 4:(cu.y + cu.h) // 4,
                cu.x // 4:(cu.x + cu.w) // 4] = True
 
@@ -1940,9 +1929,9 @@ class SliceEncoder:
         Returns (descs, costs); desc = {'type': 'inter', 'mv': (x16, y16)}
         with MVs in 1/16-pel units. On the device: K9a (full-pel search
         over the (2r+1)^2 window), K9b (the 49 quarter-pel offsets around
-        its MV), the winning prediction gathered, its mvd bits gathered
-        from a table, K6 (inter rounding); one copy back of the MVs, the
-        quarter-pel offsets and the costs.
+        its MV, in the form that writes only the winning prediction), its
+        mvd bits gathered from a table, K6 (inter rounding); one copy back
+        of the MVs, the quarter-pel offsets and the costs.
         """
         ctrl = self.ctrl
         from ..ops.intra_batch import positions_on
@@ -1968,10 +1957,10 @@ class SliceEncoder:
                               *ref_y.shape, self.device)
         mvx, mvy, _c = fullpel_search(ref_d, blocks_d, xs, ys, r, pen, bd)
         # quarter-pel refinement: 7x7 offset grid around the full-pel best
-        best_off, preds, _fc = frac_search(ref_d, blocks_d, xs, ys, mvx, mvy,
-                                           fpen, bd)
+        # (the winner form: only the winning offset's prediction is written)
+        best_off, pred, _fc = frac_search(ref_d, blocks_d, xs, ys, mvx, mvy,
+                                          fpen, bd, winner_only=True)
         off = best_off.long()
-        pred = preds[torch.arange(B, device=preds.device), off]
         # mvd bits of mv16 >> 2 = 4 * full-pel + quarter-pel offset
         # (k % 7 - 3, k // 7 - 3), gathered from a table indexed from -lim
         tab = device_mvd_bits(r, dev)

@@ -5,9 +5,10 @@
 // control/encoder.py search_inter_blocks after K9a). For each block b and
 // each of the 49 offsets k, (dx, dy) = (k % 7 - 3, k / 7 - 3) in quarter
 // pels around the full-pel MV:
-//   preds[b, k] = the 8-tap luma interpolation of the reference at that
-//                 phase (common.cuh qpel_sample, shared with K8
-//                 leaf_qpel.cu), the window itself at k = 24;
+//   pred[b, k]  = interp_one: the horizontal 8-tap pass at phase fx,
+//                 >> (bitdepth - 8), the vertical 8-tap pass at phase fy,
+//                 >> 6, the rounding shift by 14 - bitdepth and the clip;
+//                 the window itself at k = 24;
 //   satd        = satd_bw of src - pred: the n x n Hadamard of every
 //                 sub-block (n = 8 when w, h >= 8, else 4),
 //                 s = sum|t| - |t00| + (|t00| >> 2), (s + 2) >> 2
@@ -17,143 +18,423 @@
 // then best[b] = the first minimum over k. All integer work: the outputs
 // equal the reference's exactly.
 //
-// Bound on this card: bytes at the small classes, by the write of preds
-// [B, 49, h, w] int32 (78 MB for the 8x8 class at 832x480), and
-// operations near them (64 multiply-adds a sample for the interpolation
-// done directly, about 2 * 8 adds for the Hadamard). Design: one thread
-// block per (block, offset); the (h+10) x (w+10) window, read from the
-// plane on the card through clamped coordinates at the block's full-pel
-// MV, sits in shared memory as int16; one thread per sample interpolates
-// its sample from the window, stores it and its difference; the two
-// Hadamard passes go through shared memory; the per-sub-block sums gather
-// in shared memory by atomic adds (integers: order-free). A second kernel
-// takes the first minimum of each block's 49 costs.
+// Two output forms: the contract form writes all 49 predictions [B, 49, h,
+// w] (the reference's output); the winner form writes only the winning
+// offset's prediction [B, h, w], the one search_inter_blocks reads (the
+// reference gathers preds[k, best[k]] on the host).
+//
+// Bound on this card: bytes in the contract form, by the write of the 49
+// predictions (78 MB for the 8x8 class at 832x480); operations in the
+// winner form (the shared horizontal passes, 8 vertical taps a sample for
+// the 42 offsets with a fractional y, the butterfly Hadamards).
+//
+// Design: one thread block per block (several blocks per thread block
+// below 16x16), so the block's (h+8) x (w+8) window is read once, with
+// four loads in flight a thread. The 49 offsets share three
+// fractional x phases (4, 8, 12) over w + 1 columns (ix in {-1, 0}) and the
+// h + 8 rows: those three horizontal passes are computed once into shared
+// memory as int16 (their bound is checked below); at fx = 0 the reference's
+// filter 0 gives 64 * s exactly, so the window is read shifted instead. A
+// thread owns one column of n samples of one sub-block and walks the
+// offsets: it loads the n + 7 horizontal values of its column once and
+// slides the vertical 8 taps over them in registers (the identity at
+// fy = 0), keeps its n source samples in registers, runs the vertical
+// Hadamard in registers and the horizontal one across the n lanes of the
+// sub-block with warp shuffles, and sums per sub-block and per block as
+// integers with shuffles (order-free, no atomics). The costs, the first
+// minimum and both output forms come from the same launch; predictions
+// leave through a per-warp staging buffer as 16-byte stores.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int PAD = 5, NOFF = 49;
+constexpr int NOFF = 49;
+constexpr int MARGIN = 4;        // 3 taps before the sample, and ix or iy -1
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void frac_search_kernel(const int* __restrict__ ref, int H, int W,
-                                   const int* __restrict__ blocks,
-                                   const int* __restrict__ xs,
-                                   const int* __restrict__ ys,
-                                   const int* __restrict__ mvx,
-                                   const int* __restrict__ mvy, int w, int h,
-                                   int bitdepth, const float* __restrict__ fpen,
-                                   int* __restrict__ preds,
-                                   float* __restrict__ costs) {
-  extern __shared__ int sm[];
-  const int b = blockIdx.x;
-  const int k = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int hw = w * h, ww = w + 2 * PAD, wh = h + 2 * PAD;
-  const int log2_w = 31 - __clz(w);
-  const int n = (w >= 8 && h >= 8) ? 8 : 4;
-  const int log2_n = n == 8 ? 3 : 2;
-  const int nsb_x = w >> log2_n;
-  const int nsb = nsb_x * (h >> log2_n);
-  int* d = sm;                                          // [h, w]
-  int* t = sm + hw;                                     // [h, w]
-  int* sums = sm + 2 * hw;                              // [nsb]
-  int16_t* win = reinterpret_cast<int16_t*>(sm + 2 * hw + nsb);   // [wh, ww]
-  const int x0 = xs[b] + mvx[b] - PAD, y0 = ys[b] + mvy[b] - PAD;
-  for (int q = tid; q < ww * wh; q += blockDim.x) {
-    const int i = q / ww, j = q - (q / ww) * ww;
-    win[q] = static_cast<int16_t>(
-        ref[static_cast<long long>(uvg::clampi(y0 + i, 0, H - 1)) * W +
-            uvg::clampi(x0 + j, 0, W - 1)]);
+// the taps of the three fractional phases 4, 8, 12 (common.cuh kLumaFilter
+// rows 4, 8, 12), for the shared horizontal passes, indexed by constants
+__host__ __device__ constexpr int tap(int p, int t) {
+  constexpr int f[3][8] = {{-1, 4, -10, 58, 17, -5, 1, 0},
+                           {-1, 4, -11, 40, 40, -11, 4, -1},
+                           {0, 1, -5, 17, 58, -10, 4, -1}};
+  return f[p][t];
+}
+
+// the horizontal passes stored as int16: for every phase and bit depth the
+// extreme sums (all positive taps at the maximum sample, or all negative
+// ones), shifted by bitdepth - 8, stay inside int16
+constexpr bool hor_fits_int16() {
+  for (int bd = 8; bd <= 12; ++bd) {
+    const int mx = (1 << bd) - 1;
+    for (int p = 0; p < 3; ++p) {
+      int pos = 0, neg = 0;
+      for (int t = 0; t < 8; ++t) (tap(p, t) > 0 ? pos : neg) += tap(p, t);
+      if ((pos * mx) >> (bd - 8) > 32767 || (neg * mx) >> (bd - 8) < -32768)
+        return false;
+    }
+    if (mx << (14 - bd) > 32767) return false;    // fx = 0: 64 * s >> (bd-8)
   }
-  for (int q = tid; q < nsb; q += blockDim.x) sums[q] = 0;
-  __syncthreads();
-  const int ox = 4 * (k % 7 - 3), oy = 4 * (k / 7 - 3);
-  const int ix = ox >> 4, iy = oy >> 4, fx = ox & 15, fy = oy & 15;
-  const int* bg = blocks + static_cast<long long>(b) * hw;
-  int* pg = preds + (static_cast<long long>(b) * NOFF + k) * hw;
-  for (int p = tid; p < hw; p += blockDim.x) {
-    const int i = p >> log2_w, j = p & (w - 1);
-    const int pred = uvg::qpel_sample(win + (PAD + iy + i) * ww + PAD + ix + j,
-                                      ww, fx, fy, bitdepth);
-    pg[p] = pred;
-    d[p] = bg[p] - pred;
-  }
-  __syncthreads();
-  // rows: t[i][j] = sum_c d[i][jb + c] * H[c][j % n]
-  for (int p = tid; p < hw; p += blockDim.x) {
-    const int i = p >> log2_w, j = p & (w - 1);
-    const int jb = j & ~(n - 1), jn = j & (n - 1);
-    int acc = 0;
-    for (int c = 0; c < n; ++c) acc += uvg::had_sign(c, jn) * d[i * w + jb + c];
-    t[p] = acc;
-  }
-  __syncthreads();
-  // columns: u[i][j] = sum_c H[i % n][c] * t[ib + c][j]; |u|, the DC term
-  // of each sub-block taken as |u| >> 2
-  for (int p = tid; p < hw; p += blockDim.x) {
-    const int i = p >> log2_w, j = p & (w - 1);
-    const int ib = i & ~(n - 1), in = i & (n - 1);
-    int acc = 0;
-    for (int c = 0; c < n; ++c) acc += uvg::had_sign(in, c) * t[(ib + c) * w + j];
-    const int a = abs(acc);
-    const bool dc = in == 0 && (j & (n - 1)) == 0;
-    atomicAdd(&sums[(i >> log2_n) * nsb_x + (j >> log2_n)], dc ? (a >> 2) : a);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    const int add = n == 8 ? 2 : 1, shift = n == 8 ? 2 : 1;
-    int tot = 0;
-    for (int q = 0; q < nsb; ++q) tot += (sums[q] + add) >> shift;
-    costs[static_cast<long long>(b) * NOFF + k] =
-        __fadd_rn(__int2float_rn(tot), fpen[k]);
+  return true;
+}
+static_assert(hor_fits_int16(), "K9b's horizontal passes must fit int16");
+
+struct Geo {
+  int w, h, T, NB, G, nparts, ww, wh, hxw, nwarps;
+};
+
+__host__ __device__ inline Geo geometry(int w, int h, int n) {
+  Geo g;
+  g.w = w;
+  g.h = h;
+  g.T = (h / n) * w;                   // column segments a block and offset
+  g.NB = g.T < 32 ? 32 / g.T : 1;      // blocks a thread block
+  g.G = g.T <= 64 ? 7 : 1;             // offsets in flight a block
+  g.nparts = g.T > 32 ? g.T / 32 : 1;  // warps an offset of one block spans
+  g.ww = w + 2 * MARGIN;
+  g.wh = h + 2 * MARGIN;
+  g.hxw = w + 1;
+  g.nwarps = g.NB * g.T * g.G / 32;
+  return g;
+}
+
+inline size_t smem_bytes(const Geo& g, int n) {
+  return sizeof(int) * (static_cast<size_t>(g.nwarps) * n * 32 +
+                        static_cast<size_t>(g.NB) * NOFF * g.nparts + g.NB) +
+         sizeof(int16_t) * static_cast<size_t>(g.NB) * g.wh *
+             (g.ww + 3 * g.hxw);
+}
+
+// Fill win [NB][rows][cols] with the NB edge-extended windows: window bi
+// holds rows oy[bi] .. oy[bi] + rows - 1 and columns ox[bi] .. ox[bi] +
+// cols - 1 of ref [H, W], clamped to the plane. Each thread issues U loads
+// before it stores any of them, so that U round trips to memory overlap.
+// Run by all threads of the block; a barrier must follow.
+template <int U>
+__device__ __forceinline__ void load_windows(const int* __restrict__ ref,
+                                             int H, int W, const int* ox,
+                                             const int* oy, int NB, int rows,
+                                             int cols, int16_t* win) {
+  const int per = rows * cols, total = NB * per;
+  for (int q0 = threadIdx.x; q0 < total; q0 += U * blockDim.x) {
+    int v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + u * blockDim.x;
+      v[u] = 0;
+      if (q < total) {
+        const int bi = q / per, rem = q - bi * per;
+        const int i = rem / cols, j = rem - i * cols;
+        v[u] = __ldg(ref + static_cast<long long>(uvg::clampi(oy[bi] + i, 0, H - 1)) * W +
+                     uvg::clampi(ox[bi] + j, 0, W - 1));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + u * blockDim.x;
+      if (q < total) win[q] = static_cast<int16_t>(v[u]);
+    }
   }
 }
 
-__global__ void frac_best_kernel(const float* __restrict__ costs, int B,
-                                 int* __restrict__ best) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float* c = costs + static_cast<long long>(b) * NOFF;
-  int bi = 0;
-  float bc = c[0];
-  for (int q = 1; q < NOFF; ++q)
-    if (c[q] < bc) {
-      bc = c[q];
-      bi = q;
+// The n predicted samples of column c, rows r0 .. r0+n-1, at offset k.
+// win: the block's window, origin (-MARGIN, -MARGIN), row stride ww; hx:
+// its three horizontal passes [3][wh][w + 1], column j holding column
+// j - 1 of the block.
+template <int N>
+__device__ __forceinline__ void interp_col(const int16_t* win,
+                                           const int16_t* hx, const Geo& g,
+                                           int r0, int c, int k, int bd,
+                                           int* pred) {
+  const int ox = 4 * (k % 7 - 3), oy = 4 * (k / 7 - 3);
+  const int ix = ox >> 4, iy = oy >> 4, fx = ox & 15, fy = oy & 15;
+  const int wp = 14 - bd, rnd = 1 << (wp - 1), mx = (1 << bd) - 1;
+  if (fx == 0 && fy == 0) {
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      pred[e] = win[(r0 + e + MARGIN) * g.ww + c + MARGIN];
+    return;
+  }
+  // the column of horizontal values: phase fx at column c + ix, or the
+  // window << (14 - bd) at fx = 0 (64 * s >> (bd - 8), exact)
+  const int16_t* col;
+  int stride, lsh;
+  if (fx == 0) {
+    col = win + c + MARGIN;
+    stride = g.ww;
+    lsh = 14 - bd;
+  } else {
+    col = hx + ((fx >> 2) - 1) * g.wh * g.hxw + c + ix + 1;
+    stride = g.hxw;
+    lsh = 0;
+  }
+  if (fy == 0) {            // the vertical pass is the identity (64x >> 6)
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int v = col[(r0 + e + MARGIN) * stride];
+      pred[e] = uvg::clampi((v + rnd) >> wp, 0, mx);
     }
-  best[b] = bi;
+    return;
+  }
+  // sample row r reads window rows r + iy + 1 .. r + iy + 8
+  const int16_t* p0 = col + (r0 + iy + 1) * stride;
+  int v[N + 7];
+#pragma unroll
+  for (int t = 0; t < N + 7; ++t) v[t] = static_cast<int>(p0[t * stride]) << lsh;
+  int f[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) f[t] = uvg::kLumaFilter[fy][t];
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    int acc = 0;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) acc += f[t] * v[e + t];
+    acc >>= 6;
+    pred[e] = uvg::clampi((acc + rnd) >> wp, 0, mx);
+  }
+}
+
+// Write the warp's n x 32 predicted samples: lane L holds rows e of its
+// column, `dst` points at its row r0 (null where the block is past B).
+// Staged in shared memory so that each store is 16 bytes of 4 lanes'
+// neighbouring columns.
+template <int N>
+__device__ __forceinline__ void store_warp(const int* pred, int* stage,
+                                           int lane, int* dst, int w) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) stage[e * 32 + lane] = pred[e];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const int q = lane + 32 * i, e = q >> 3, j = q & 7;
+    const int4 v = *reinterpret_cast<const int4*>(stage + e * 32 + 4 * j);
+    int* d = reinterpret_cast<int*>(__shfl_sync(
+        FULL, reinterpret_cast<unsigned long long>(dst), 4 * j));
+    if (d != nullptr) *reinterpret_cast<int4*>(d + e * w) = v;
+  }
+  __syncwarp();
+}
+
+template <int N, int WT, int HT>
+__global__ void __launch_bounds__(512)
+frac_search_kernel(const int* __restrict__ ref, int H, int W,
+                   const int* __restrict__ blocks, const int* __restrict__ xs,
+                   const int* __restrict__ ys, const int* __restrict__ mvx,
+                   const int* __restrict__ mvy, int B, int w_, int h_,
+                   int bd, const float* __restrict__ fpen,
+                   int* __restrict__ best, int* __restrict__ preds,
+                   float* __restrict__ costs, int winner) {
+  const Geo g = geometry(WT ? WT : w_, HT ? HT : h_, N);
+  const int w = g.w, h = g.h;
+  extern __shared__ int4 smem4[];
+  int* stage = reinterpret_cast<int*>(smem4);             // [nwarps][N][32]
+  int* part = stage + g.nwarps * N * 32;                  // [NB][49][nparts]
+  int* best_s = part + g.NB * NOFF * g.nparts;            // [NB]
+  int16_t* win_s = reinterpret_cast<int16_t*>(best_s + g.NB);  // [NB][wh][ww]
+  int16_t* hx_s = win_s + g.NB * g.wh * g.ww;             // [NB][3][wh][hxw]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b0 = blockIdx.x * g.NB;
+
+  // the windows (origins in shared memory first)
+  __shared__ int org[2][8];
+  if (tid < g.NB) {
+    const int b = min(b0 + tid, B - 1);
+    org[0][tid] = xs[b] + mvx[b] - MARGIN;
+    org[1][tid] = ys[b] + mvy[b] - MARGIN;
+  }
+  __syncthreads();
+  load_windows<4>(ref, H, W, org[0], org[1], g.NB, g.wh, g.ww, win_s);
+  // this thread's column: block bi, offsets k = grp, grp + G, ...
+  const int per_grp = g.NB * g.T;
+  const int grp = tid / per_grp, rem = tid - grp * per_grp;
+  const int bi = rem / g.T, task = rem - bi * g.T;
+  const int c = task & (w - 1), r0 = (task / w) * N;
+  const int cc = task & (N - 1);
+  const bool valid = b0 + bi < B;
+  const int b = min(b0 + bi, B - 1);
+  int src[N];
+  const int* sg = blocks + static_cast<long long>(b) * w * h;
+#pragma unroll
+  for (int e = 0; e < N; ++e) src[e] = sg[(r0 + e) * w + c];
+  __syncthreads();
+  // the three shared horizontal passes, >> (bd - 8), as int16
+  for (int bj = 0; bj < g.NB; ++bj) {
+    const int16_t* wb = win_s + bj * g.wh * g.ww;
+    int16_t* hb = hx_s + bj * 3 * g.wh * g.hxw;
+    for (int i = warp; i < g.wh; i += g.nwarps) {
+      for (int j = lane; j < g.hxw; j += 32) {
+        int v[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) v[t] = wb[i * g.ww + j + t];
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          int acc = 0;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) acc += tap(p, t) * v[t];
+          hb[(p * g.wh + i) * g.hxw + j] = static_cast<int16_t>(acc >> (bd - 8));
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  const int16_t* wb = win_s + bi * g.wh * g.ww;
+  const int16_t* hb = hx_s + bi * 3 * g.wh * g.hxw;
+  int* stage_w = stage + warp * N * 32;
+  const int red_top = g.T < 32 ? g.T : 32;
+  const int add = N == 8 ? 2 : 1, shift = N == 8 ? 2 : 1;
+  for (int k = grp; k < NOFF; k += g.G) {
+    int pred[N], d[N];
+    interp_col<N>(wb, hb, g, r0, c, k, bd, pred);
+#pragma unroll
+    for (int e = 0; e < N; ++e) d[e] = src[e] - pred[e];
+    // vertical Hadamard in registers, horizontal across the sub-block's
+    // lanes (Sylvester order, both)
+#pragma unroll
+    for (int m = 1; m < N; m <<= 1)
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        if (!(e & m)) {
+          const int a = d[e], q = d[e + m];
+          d[e] = a + q;
+          d[e + m] = a - q;
+        }
+#pragma unroll
+    for (int m = 1; m < N; m <<= 1)
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const int o = __shfl_xor_sync(FULL, d[e], m);
+        d[e] = (lane & m) ? o - d[e] : d[e] + o;
+      }
+    int s = 0;
+#pragma unroll
+    for (int e = 0; e < N; ++e) s += abs(d[e]);
+    if (cc == 0) s = s - abs(d[0]) + (abs(d[0]) >> 2);
+#pragma unroll
+    for (int m = 1; m < N; m <<= 1) s += __shfl_xor_sync(FULL, s, m);
+    int v = cc == 0 ? (s + add) >> shift : 0;
+    for (int m = N; m < red_top; m <<= 1) v += __shfl_xor_sync(FULL, v, m);
+    if ((task & 31) == 0) part[(bi * NOFF + k) * g.nparts + (task >> 5)] = v;
+    if (!winner) {
+      int* dst = valid ? preds + ((static_cast<long long>(b) * NOFF + k) * h + r0) * w + c
+                       : nullptr;
+      store_warp<N>(pred, stage_w, lane, dst, w);
+    }
+  }
+  __syncthreads();
+
+  // costs and the first minimum, a warp per block
+  for (int bj = warp; bj < g.NB; bj += g.nwarps) {
+    const int bb = b0 + bj;
+    if (bb >= B) {
+      if (lane == 0) best_s[bj] = 0;
+      continue;
+    }
+    float bc = INFINITY;
+    int bk = NOFF;
+    for (int k = lane; k < NOFF; k += 32) {
+      int satd = 0;
+      for (int q = 0; q < g.nparts; ++q) satd += part[(bj * NOFF + k) * g.nparts + q];
+      const float cost = __fadd_rn(__int2float_rn(satd), fpen[k]);
+      costs[static_cast<long long>(bb) * NOFF + k] = cost;
+      if (cost < bc) {                     // k ascends: first minimum
+        bc = cost;
+        bk = k;
+      }
+    }
+    for (int o = 16; o >= 1; o >>= 1) {
+      const float oc = __shfl_xor_sync(FULL, bc, o);
+      const int ok = __shfl_xor_sync(FULL, bk, o);
+      if (oc < bc || (oc == bc && ok < bk)) {
+        bc = oc;
+        bk = ok;
+      }
+    }
+    if (lane == 0) {
+      best[bb] = bk;
+      best_s[bj] = bk;
+    }
+  }
+  if (!winner) return;
+  __syncthreads();
+  // the winner form: the winning offset's prediction, recomputed
+  if (grp == 0) {
+    int pred[N];
+    interp_col<N>(wb, hb, g, r0, c, best_s[bi], bd, pred);
+    int* dst = valid ? preds + (static_cast<long long>(b) * h + r0) * w + c : nullptr;
+    store_warp<N>(pred, stage_w, lane, dst, w);
+  }
+}
+
+template <int N, int WT, int HT>
+cudaError_t launch(const int* ref, int H, int W, const int* blocks,
+                   const int* xs, const int* ys, const int* mvx,
+                   const int* mvy, int B, int w, int h, int bd,
+                   const float* fpen, int* best, int* preds, float* costs,
+                   int winner, cudaStream_t st) {
+  const Geo g = geometry(w, h, N);
+  const size_t smem = smem_bytes(g, N);
+  auto kern = frac_search_kernel<N, WT, HT>;
+  // above 48 KB by opt-in, raised once per instance to the largest asked
+  // (so that no attribute call lands inside a CUDA graph's capture after
+  // the first launch)
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    granted = smem;
+  }
+  kern<<<(B + g.NB - 1) / g.NB, g.NB * g.T * g.G, smem, st>>>(
+      ref, H, W, blocks, xs, ys, mvx, mvy, B, w, h, bd, fpen, best, preds,
+      costs, winner);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // ref [H, W] int32; blocks [B, h, w] int32; xs, ys, mvx, mvy [B] int32
-// (block origins and full-pel MVs); fpen [49] float32 -> best [B] int32,
-// preds [B, 49, h, w] int32, costs [B, 49] float32
+// (block origins and full-pel MVs); fpen [49] float32; winner 0 or 1 ->
+// best [B] int32, costs [B, 49] float32, and preds [B, 49, h, w] int32
+// (winner 0) or [B, h, w] int32, the winning offset's (winner 1); preds
+// 16-byte aligned
 extern "C" int frac_search(const void* ref, int H, int W, const void* blocks,
                            const void* xs, const void* ys, const void* mvx,
                            const void* mvy, int B, int w, int h, int bitdepth,
                            const void* fpen, void* best, void* preds,
-                           void* costs, void* stream) {
-  if (bitdepth < 8 || bitdepth > 12 || w < 4 || h < 4 || (w & (w - 1)) ||
-      (h & (h - 1)))
+                           void* costs, int winner, void* stream) {
+  if (bitdepth < 8 || bitdepth > 12 || w < 4 || h < 4 || w > 64 || h > 64 ||
+      (w & (w - 1)) || (h & (h - 1)) ||
+      reinterpret_cast<uintptr_t>(preds) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n = (w >= 8 && h >= 8) ? 8 : 4;
-  const size_t smem = sizeof(int) * (2 * static_cast<size_t>(w) * h +
-                                     static_cast<size_t>(w / n) * (h / n)) +
-                      sizeof(int16_t) * static_cast<size_t>(w + 2 * PAD) * (h + 2 * PAD);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaSuccess);
+  const auto* r = static_cast<const int*>(ref);
+  const auto* bl = static_cast<const int*>(blocks);
+  const auto* x = static_cast<const int*>(xs);
+  const auto* y = static_cast<const int*>(ys);
+  const auto* mx = static_cast<const int*>(mvx);
+  const auto* my = static_cast<const int*>(mvy);
+  const auto* fp = static_cast<const float*>(fpen);
+  auto* be = static_cast<int*>(best);
+  auto* pr = static_cast<int*>(preds);
+  auto* co = static_cast<float*>(costs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = w * h >= 256 ? 256 : (w * h < 32 ? 32 : w * h);
-  frac_search_kernel<<<dim3(B, NOFF), threads, smem, st>>>(
-      static_cast<const int*>(ref), H, W, static_cast<const int*>(blocks),
-      static_cast<const int*>(xs), static_cast<const int*>(ys),
-      static_cast<const int*>(mvx), static_cast<const int*>(mvy), w, h, bitdepth,
-      static_cast<const float*>(fpen), static_cast<int*>(preds),
-      static_cast<float*>(costs));
-  frac_best_kernel<<<(B + 127) / 128, 128, 0, st>>>(
-      static_cast<const float*>(costs), B, static_cast<int*>(best));
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e;
+  if (w == 16 && h == 16)
+    e = launch<8, 16, 16>(r, H, W, bl, x, y, mx, my, B, w, h, bitdepth, fp, be,
+                          pr, co, winner, st);
+  else if (w == 8 && h == 8)
+    e = launch<8, 8, 8>(r, H, W, bl, x, y, mx, my, B, w, h, bitdepth, fp, be,
+                        pr, co, winner, st);
+  else if (w >= 8 && h >= 8)
+    e = launch<8, 0, 0>(r, H, W, bl, x, y, mx, my, B, w, h, bitdepth, fp, be,
+                        pr, co, winner, st);
+  else
+    e = launch<4, 0, 0>(r, H, W, bl, x, y, mx, my, B, w, h, bitdepth, fp, be,
+                        pr, co, winner, st);
+  return static_cast<int>(e);
 }
 
 UVG_ERROR_ENTRY(frac_search)

@@ -72,9 +72,9 @@ SIGNATURES = {
     "fullpel_search": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                        _P],
     # ref, H, W, blocks, xs, ys, mvx, mvy, B, w, h, bitdepth, fpen, best,
-    # preds, costs
+    # preds (all 49, or the winner's), costs, winner
     "frac_search": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                    _P, _P, _P],
+                    _P, _P, _I, _P],
     # refs, modes, B, R, w, h, max_pix, K, W, pdpc_wl, pdpc_sidx, hv_wl,
     # hv_sidx, needs_clip, pdpc_on, hv_on, hv_topleft, preds
     "predict_modes": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 10 + [_P, _P],

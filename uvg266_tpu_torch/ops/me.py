@@ -15,6 +15,11 @@ that launches the hand-written CUDA kernel (csrc/) for tensors on the card:
 - K9b ``frac_search`` (reference: make_frac_search_fn): the 49 quarter-pel
   offsets around the full-pel MV, 8-tap interpolation, satd_bw and a rate
   penalty, first minimum; integer work, equal to the reference exactly.
+  With ``winner_only`` it returns only the winning offset's prediction,
+  the one search_inter_blocks reads.
+
+``frac_search_sep`` and ``box_r2`` compute what the two kernels compute,
+in their arithmetic, for the tests.
 
 Both read their windows from the reference plane through clamped
 coordinates (``windows``), the reference's fetch_extended_block. A wrapper
@@ -78,7 +83,7 @@ def windows(plane: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, w: int,
     return plane.long()[rows[:, :, None], cols[:, None, :]]
 
 
-def _check_search(name, ref, blocks, vecs, bitdepth: int):
+def _check_search(name, ref, blocks, vecs, bitdepth: int, max_bd: int):
     for t, nd in ((ref, 2), (blocks, 3)):
         if t.dtype != torch.int32 or t.dim() != nd:
             raise ValueError(f"{name}: expects int32 ref [H, W] and blocks "
@@ -87,8 +92,8 @@ def _check_search(name, ref, blocks, vecs, bitdepth: int):
     for v in vecs:
         if v.dtype != torch.int32 or tuple(v.shape) != (B,):
             raise ValueError(f"{name}: expects int32 vectors [B]")
-    if not 8 <= bitdepth <= 10:
-        raise ValueError(f"{name}: samples of 8..10 bits only")
+    if not 8 <= bitdepth <= max_bd:
+        raise ValueError(f"{name}: samples of 8..{max_bd} bits only")
 
 
 def fullpel_search_plain(ref: torch.Tensor, blocks: torch.Tensor,
@@ -130,7 +135,7 @@ def fullpel_search(ref: torch.Tensor, blocks: torch.Tensor, xs: torch.Tensor,
     if ref.device.type == "cpu":
         return fullpel_search_plain(ref, blocks, xs, ys, r, pen)
     dev = kernels.check_cuda("fullpel_search", ref, blocks, xs, ys, pen)
-    _check_search("fullpel_search", ref, blocks, (xs, ys), bitdepth)
+    _check_search("fullpel_search", ref, blocks, (xs, ys), bitdepth, 10)
     B, h, w = blocks.shape
     n = 2 * r + 1
     if pen.dtype != torch.float32 or pen.numel() != n * n:
@@ -189,24 +194,139 @@ def frac_search_plain(ref: torch.Tensor, blocks: torch.Tensor,
 
 def frac_search(ref: torch.Tensor, blocks: torch.Tensor, xs: torch.Tensor,
                 ys: torch.Tensor, mvx: torch.Tensor, mvy: torch.Tensor,
-                fpen: torch.Tensor, bitdepth: int):
-    """K9b: frac_search_plain on the CPU, the CUDA kernel on the card."""
+                fpen: torch.Tensor, bitdepth: int, winner_only: bool = False):
+    """K9b: frac_search_plain on the CPU, the CUDA kernel on the card.
+    winner_only: the second output is the winning offset's prediction
+    [B, h, w] (frac_search_plain's preds gathered at best) in place of all
+    49 [B, 49, h, w]."""
     if ref.device.type == "cpu":
-        return frac_search_plain(ref, blocks, xs, ys, mvx, mvy, fpen,
-                                 bitdepth)
+        best, preds, costs = frac_search_plain(ref, blocks, xs, ys, mvx, mvy,
+                                               fpen, bitdepth)
+        if winner_only:
+            preds = preds[torch.arange(best.shape[0]), best.long()]
+        return best, preds, costs
     dev = kernels.check_cuda("frac_search", ref, blocks, xs, ys, mvx, mvy,
                              fpen)
-    _check_search("frac_search", ref, blocks, (xs, ys, mvx, mvy), bitdepth)
+    _check_search("frac_search", ref, blocks, (xs, ys, mvx, mvy), bitdepth,
+                  12)
     if fpen.dtype != torch.float32 or fpen.numel() != 49:
         raise ValueError("frac_search: expects a float32 penalty of 49 "
                          "offsets")
     B, h, w = blocks.shape
     H, W = ref.shape
     best = torch.empty((B,), dtype=torch.int32, device=dev)
-    preds = torch.empty((B, 49, h, w), dtype=torch.int32, device=dev)
+    preds = torch.empty((B, h, w) if winner_only else (B, 49, h, w),
+                        dtype=torch.int32, device=dev)
     costs = torch.empty((B, 49), dtype=torch.float32, device=dev)
     kernels.launch("frac_search", dev, ref.data_ptr(), H, W, blocks.data_ptr(),
                    xs.data_ptr(), ys.data_ptr(), mvx.data_ptr(),
                    mvy.data_ptr(), B, w, h, bitdepth, fpen.data_ptr(),
-                   best.data_ptr(), preds.data_ptr(), costs.data_ptr())
+                   best.data_ptr(), preds.data_ptr(), costs.data_ptr(),
+                   int(winner_only))
     return best, preds, costs
+
+
+# --- the kernels' arithmetic in plain PyTorch, for the tests --------------
+
+# the window margin K9b reads: the 8 taps reach 3 samples before a sample,
+# and the offsets' integer part (4q) >> 4 (q in -3..3 quarter pels) is -1
+# or 0, their 1/16 phase (4q) & 15 one of 0, 4, 8, 12
+_MARGIN = 4
+
+
+def frac_search_sep(ref: torch.Tensor, blocks: torch.Tensor,
+                    xs: torch.Tensor, ys: torch.Tensor, mvx: torch.Tensor,
+                    mvy: torch.Tensor, fpen: torch.Tensor, bitdepth: int,
+                    winner_only: bool = False):
+    """K9b as csrc/frac_search.cu computes it, in plain PyTorch: the
+    (h+8) x (w+8) window; the three horizontal passes at fx = 4, 8, 12
+    over its rows and the w + 1 columns the offsets share, >> (bitdepth -
+    8), kept as int16; at fx = 0 the window << (14 - bitdepth) (the
+    reference's 64 * s >> (bitdepth - 8)); the vertical 8 taps per
+    column, skipped at fy = 0; the window itself at k = 24; the SATD as
+    a vertical then a horizontal butterfly Hadamard per sub-block. Equal
+    to frac_search_plain (and, winner_only, to its gather)."""
+    B, h, w = blocks.shape
+    M = _MARGIN
+    win = windows(ref, xs.long() + mvx.long(), ys.long() + mvy.long(), w, h,
+                  M)                                  # [B, h+8, w+8]
+    hx = []
+    for fx in (4, 8, 12):
+        f = LUMA_FILTER[fx]
+        acc = sum(int(f[t]) * win[:, :, t:t + w + 1] for t in range(8))
+        acc = acc >> (bitdepth - 8)
+        h16 = acc.to(torch.int16)
+        if not torch.equal(h16.long(), acc):
+            raise OverflowError("frac_search_sep: a horizontal pass left "
+                                "int16")
+        hx.append(h16.long())                          # [B, h+8, w+1]
+    wp = 14 - bitdepth
+    mx = (1 << bitdepth) - 1
+    preds = []
+    for k in range(49):
+        ox, oy = 4 * (k % 7 - 3), 4 * (k // 7 - 3)
+        ix, iy, fx, fy = ox >> 4, oy >> 4, ox & 15, oy & 15
+        if fx == 0 and fy == 0:
+            preds.append(win[:, M:M + h, M:M + w])
+            continue
+        col = (win[:, :, M:M + w] << wp) if fx == 0             else hx[(fx >> 2) - 1][:, :, ix + 1:ix + 1 + w]
+        if fy == 0:
+            out = col[:, M:M + h]
+        else:
+            f = LUMA_FILTER[fy]
+            out = sum(int(f[t]) * col[:, iy + 1 + t:iy + 1 + t + h]
+                      for t in range(8)) >> 6
+        preds.append(((out + (1 << (wp - 1))) >> wp).clamp(0, mx))
+    preds = torch.stack(preds, dim=1)                  # [B, 49, h, w]
+    costs = satd_butterfly(blocks.long()[:, None] - preds).to(torch.float32) \
+        + fpen[None]
+    best = torch.argmin(costs, dim=1)
+    preds = preds.to(torch.int32)
+    if winner_only:
+        preds = preds[torch.arange(B), best]
+    return best.to(torch.int32), preds, costs
+
+
+def satd_butterfly(d: torch.Tensor) -> torch.Tensor:
+    """satd_bw of differences d [..., h, w] (int64) as K9b takes it: per
+    n x n sub-block the butterfly Hadamard down the columns, then along the
+    rows (Sylvester order), sum|t| - |t00| + (|t00| >> 2), the sub-block's
+    rounding, the integer sum over the sub-blocks."""
+    *lead, h, w = d.shape
+    n = 8 if (w >= 8 and h >= 8) else 4
+    add, shift = (2, 2) if n == 8 else (1, 1)
+    t = d.reshape(*lead, h // n, n, w // n, n).movedim(-3, -2).clone()
+    for axis in (-2, -1):          # down the columns, then along the rows
+        m = 1
+        while m < n:
+            t = t.unflatten(axis, (n // (2 * m), 2, m))
+            a, b = t.select(axis - 1, 0), t.select(axis - 1, 1)
+            t = torch.stack((a + b, a - b), dim=axis - 1).flatten(
+                axis - 2, axis)
+            m *= 2
+    a = t.abs()
+    s = a.sum(dim=(-2, -1))
+    dc = a[..., 0, 0]
+    s = (s - dc + (dc >> 2) + add) >> shift
+    return s.sum(dim=(-2, -1))
+
+
+def box_r2(win: torch.Tensor, w: int, h: int) -> torch.Tensor:
+    """K9a's r2 as csrc/fullpel_search.cu computes it: windows [B, h+2r,
+    w+2r] -> [B, 2r+1, 2r+1], the sum of win^2 over each h x w box, by
+    column sums sliding down the rows, then row sums of those sliding
+    along the columns, each step in uint32 (here int64 reduced modulo
+    2^32: exact where the true sums stay below 2^32)."""
+    mask = (1 << 32) - 1
+    B, wh, ww = win.shape
+    n = wh - h + 1
+    sq = win.long() * win.long()
+    cols = [sq[:, :h].sum(1) & mask]                   # [B, ww] per dy
+    for dy in range(1, n):
+        cols.append((cols[-1] + sq[:, dy + h - 1] - sq[:, dy - 1]) & mask)
+    cs = torch.stack(cols, dim=1)                      # [B, n, ww]
+    rows = [cs[:, :, :w].sum(2) & mask]
+    for dx in range(1, ww - w + 1):
+        rows.append((rows[-1] + cs[:, :, dx + w - 1] - cs[:, :, dx - 1])
+                    & mask)
+    return torch.stack(rows, dim=2)                    # [B, n, n]
