@@ -18,7 +18,7 @@ Phases, one line each (or a few), any failure exits non-zero:
      modes and the 35 of the rough search, K4 over 67, 35, 16 and 12
      candidates, on the class grid, on one block and on 37 blocks, and at
      the largest residual). Times from CUDA events over 20 calls (and,
-     for K1-K4, K9a and K9b, over 20 calls captured in a CUDA graph and
+     for K1-K4 and K9a-K11, over 20 calls captured in a CUDA graph and
      replayed: their device time without the host's launch path), launches
      per frame and the least time the card could take (bytes over 3.35
      TB/s or operations over 67 T/s);
@@ -32,8 +32,10 @@ Phases, one line each (or a few), any failure exits non-zero:
      (frame, random and edge planes, 8 and 10 bits): K12a refs_blocks and
      K10 mip_preds at every class position, K3 satd67 and K4 rd_cost over
      the class's 12 or 16 MIP candidates, K11 mts_search (classes up to
-     32x32) on K4's winning prediction and on the largest residual: all
-     outputs equal, tolerance 0;
+     32x32) on K4's winning prediction and on the largest residual, and
+     K10 and K11 (up to 32x32) at the BT/TT shapes too: all outputs equal,
+     tolerance 0. K10 and K11 are also timed per class on a CUDA graph of
+     20 calls (K10 through its C entry), beside their earlier designs';
   4c. the kernels of the per-class inter search and of the rough search at
      832x480 (frame, flat and edge planes, 8 and 10 bits): K9a
      fullpel_search and both forms of K9b frac_search (all 49 predictions;
@@ -147,19 +149,28 @@ REPLACES = {
 }
 INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
 # the kernels timed on a CUDA graph too (their wrappers only allocate their
-# outputs and launch)
-GRAPH_KERNELS = INTRA_KERNELS + ("fullpel_search", "frac_search")
+# outputs and launch; K10's C entry is graphed, since its wrapper copies the
+# positions from the host)
+GRAPH_KERNELS = INTRA_KERNELS + ("fullpel_search", "frac_search", "mip_preds",
+                                 "mts_search")
 TR_KERNELS = ("fwd_transform", "inv_transform", "quant_levels",
               "dequant_levels")
 TR_QPS = (0, 22, 27, 37)      # qp_scaled of phase 4d, and the largest
 # the BT/TT child shapes of the lattice K2 and K4 are also held at (phase 3)
 LATTICE_SHAPES = ((32, 8), (8, 32), (64, 16), (16, 64), (4, 16), (16, 4))
-# the earlier designs' per-class times, printed beside the new ones: my chip
-# run 2 of PR 5 (NVIDIA H100 80GB HBM3, 700.00 W), ms per 832x480 frame
-PR5_MS = {("predict67", 64): 0.1222, ("predict67", 32): 0.1266,
-          ("predict67", 16): 0.1241, ("predict67", 8): 0.1336,
-          ("rd_cost", 64): 0.1355, ("rd_cost", 32): 0.0367,
-          ("rd_cost", 16): 0.0506, ("rd_cost", 8): 0.0529}
+# the earlier designs' per-class times, printed beside the new ones, ms per
+# 832x480 frame on an NVIDIA H100 80GB HBM3 at 700.00 W: K2 (per-sample
+# tables) and K4 (full matrix products) by CUDA events; K10 (a thread block
+# per block, runtime divisions) and K11 (the five pairs one after another
+# through full matrix products) on a CUDA graph (tools/k10_k11_times.py)
+EARLIER_MS = {("predict67", 64): 0.1222, ("predict67", 32): 0.1266,
+              ("predict67", 16): 0.1241, ("predict67", 8): 0.1336,
+              ("rd_cost", 64): 0.1355, ("rd_cost", 32): 0.0367,
+              ("rd_cost", 16): 0.0506, ("rd_cost", 8): 0.0529,
+              ("mip_preds", 64): 0.0714, ("mip_preds", 32): 0.0430,
+              ("mip_preds", 16): 0.0478, ("mip_preds", 8): 0.0718,
+              ("mts_search", 32): 0.1347, ("mts_search", 16): 0.0627,
+              ("mts_search", 8): 0.1234}
 # K9a and K9b before their redesign (a thread per offset; a thread block
 # per block and offset), ms per reference at 10 bits (16x16 + 8x8), CUDA
 # events, this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md)
@@ -318,14 +329,25 @@ def satd_ops(n: int) -> int:
     return 1 + 2 * (n.bit_length() - 1) + 2
 
 
-def mts_pair_ops(w: int, h: int, keep_w: int, keep_h: int, dct2_w: bool,
-                 dct2_h: bool) -> int:
-    """Operations of a forward and an inverse 2-D transform of one MTS
-    pair: DCT2 as a partial butterfly, DST7 and DCT8 (no butterfly) as a
-    matrix product over the coefficients kept."""
-    rows = dct_ops(w) if dct2_w else 2 * w * keep_w
-    cols = dct_ops(h) if dct2_h else 2 * h * keep_h
-    return 2 * (h * rows + keep_w * cols)
+def joint_ops(n: int, k: int) -> int:
+    """Operations of one n-point line's DST7 and DCT8 together, the first
+    k outputs of each (DCT8[k][x] = (-1)^k DST7[k][n-1-x]): n adds and
+    subtracts for v[x] +- v[n-1-x], two n/2-term multiply-adds per k, and
+    the sum, the difference and their halving per k."""
+    return n + k * (2 * n + 4)
+
+
+def mts_ops(w: int, h: int, kw: int, kh: int) -> int:
+    """Operations of the five MTS candidates' transforms: DCT2/DCT2
+    forward and inverse as partial butterflies; the four DST7/DCT8 pairs'
+    forward passes shared (one row pass gives both horizontal types, one
+    column pass per horizontal type both vertical ones, kw x kh
+    coefficients kept), and per pair the inverse as matrix products over
+    the kept coefficients (no butterfly)."""
+    dct2 = 2 * (h * dct_ops(w) + w * dct_ops(h))
+    fwd = h * joint_ops(w, kw) + 2 * kw * joint_ops(h, kh)
+    inv = 4 * (2 * kw * h * kh + 2 * h * w * kw)
+    return dct2 + fwd + inv
 
 
 def work(name, B, w, h, H_, W_, M=67, **kw):
@@ -351,11 +373,11 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
         return ((H_ * W_ + 2 * B + B * M * hw) * 4 + n_modes * rp * rp * 2 * rb,
                 B * (w + h + M * per_cand))
     if name == "mts_search":
-        # prediction and source in, 9 B out; five transform pairs
+        # prediction and source in, 9 B out; the five transform pairs
         # (candidate 0 is DCT2/DCT2, the others pair DST7 and DCT8)
-        ops_ = sum(mts_pair_ops(w, h, kw_, kh_, i == 0, i == 0)
-                   for i, (kw_, kh_) in enumerate(kw["keep"]))
-        return 2 * B * hw * 4 + 5 * (w * w + h * h) + 16 + B * 9, B * ops_
+        kw_, kh_ = kw["keep"][1]
+        return (2 * B * hw * 4 + 5 * (w * w + h * h) + 16 + B * 9,
+                B * mts_ops(w, h, kw_, kh_))
     if name == "predict67":
         # the references and one 64-byte descriptor per mode in, the
         # predictions out (M = 67, or a mode subset, its list read too)
@@ -634,13 +656,15 @@ def main() -> int:
             fail(f"{name} {what}: kernel and plain version differ by {d}")
 
     def timed(name, kern, plain, label, n_kern=20, n_plain=3, account=True,
-              **kw):
+              graph=None, **kw):
         # account=False: printed only (K3/K4 at a MIP candidate count; their
-        # rows in the JSON line stay the 67-mode times of the all-intra path)
+        # rows in the JSON line stay the 67-mode times of the all-intra path);
+        # graph: what the CUDA graph replays in place of kern
         # -> (kernel ms, graph ms or None, bound ms)
         k_ms = time_ms(torch, kern, n_kern)
         p_ms = time_ms(torch, plain, n_plain)
-        g_ms = graph_ms(torch, kern, n_kern) if name in GRAPH_KERNELS else None
+        g_ms = (graph_ms(torch, graph or kern, n_kern)
+                if name in GRAPH_KERNELS else None)
         b, o = work(name, **kw)
         if account:
             if g_ms is not None:
@@ -650,12 +674,14 @@ def main() -> int:
             bytes_[name] += b
             ops[name] += o
         bound = max(b / HBM_BYTES_PER_S, o / OPS_PER_S) * 1e3
-        before = PR5_MS.get((name, kw["w"])) if kw["w"] == kw["h"] else None
+        before = (EARLIER_MS.get((name, kw["w"])) if kw["w"] == kw["h"]
+                  else None)
         print(f"  {name} {label}: {k_ms:.4f} ms kernel"
               + ("" if g_ms is None else f" ({g_ms:.4f} ms device, graph)")
               + f", {p_ms:.4f} ms plain, bound {bound:.4f} ms ({b} B, {o} ops)"
               + ("" if before is None or not account
-                 else f"; PR 5 design {before:.4f} ms"), flush=True)
+                 else f"; earlier design {before:.4f} ms"),
+              flush=True)
         return k_ms, g_ms, bound
 
     frame_src = torch.from_numpy(frames[0][0]).to(dev)
@@ -959,8 +985,8 @@ def main() -> int:
                     pairs = [(preds[torch.arange(B, device=dev), best.long()],
                               blocks)]
                     if tag == "edge":
-                        # the largest residual: the SSD of a 32x32 10-bit
-                        # block passes 2^30
+                        # the largest residual: a 32x32 10-bit block's SSD
+                        # reaches 1024 * 1023^2, just below 2^30
                         pairs.append((torch.zeros_like(blocks),
                                       torch.full_like(blocks, mx)))
                     for k, (pp, bb) in enumerate(pairs):
@@ -978,11 +1004,20 @@ def main() -> int:
         timed("refs_blocks", lambda: ib.refs_blocks(frame_src, xs, ys, w, h),
               lambda: ib.refs_blocks_plain(frame_src, xs, ys, w, h),
               f"{w}x{h}", **shape)
+        xd, yd = ib.positions_on(xs, ys, w, h, H, W, dev)
+        k10_out = torch.empty((B, n_cand, h, w), dtype=torch.int32,
+                              device=dev)
+
+        def k10_entry():
+            kernels.launch("mip_preds", dev, frame_src.data_ptr(), H, W,
+                           xd.data_ptr(), yd.data_ptr(), B, w, h, 8,
+                           mat.data_ptr(), k10_out.data_ptr())
         timed("mip_preds",
               lambda: mp.mip_preds(frame_src, xs, ys, w, h, 8, mat),
               lambda: mp.mip_preds_plain(frame_src, xs, ys, w, h, 8, mat),
-              f"{w}x{h} {n_cand} candidates", M=n_cand,
+              f"{w}x{h} {n_cand} candidates", graph=k10_entry, M=n_cand,
               geom=(n_modes, rb, rp), **shape)
+        del xd, yd, k10_out
         refs, blocks = ib.refs_blocks(frame_src, xs, ys, w, h)
         mpreds = mp.mip_preds(frame_src, xs, ys, w, h, 8, mat)
         msatds = ib.satd67(mpreds, blocks)
@@ -1004,6 +1039,52 @@ def main() -> int:
                   keep=mts["mts_keep"], **shape)
             del preds, best, t_args
         del refs, blocks, mpreds, msatds, m_args
+    # K10 and K11 at the BT/TT shapes: the class grid, 8 and 10 bits; K11 on
+    # K4's winning prediction and on the largest residual
+    for (w, h) in LATTICE_SHAPES:
+        nx, ny = W // w, H // h
+        xs = np.tile(np.arange(nx, dtype=np.int32) * w, ny)
+        ys = np.repeat(np.arange(ny, dtype=np.int32) * h, nx)
+        B = xs.size
+        mat = mip_matrix(mp.mip_size_id(w, h), "cuda")
+        mts = device_mts_tables(w, h, "cuda") if max(w, h) <= 32 else None
+        for bd in (8, 10):
+            mx = (1 << bd) - 1
+            tabs = device_tables(w, h, bd, "cuda")
+            for tag, src in class_planes(bd).items():
+                what = f"{w}x{h} {bd}-bit {tag}"
+                same("mip_preds", what,
+                     mp.mip_preds(src, xs, ys, w, h, bd, mat),
+                     mp.mip_preds_plain(src, xs, ys, w, h, bd, mat))
+                if mts is None:
+                    continue
+                refs, blocks = ib.refs_blocks(src, xs, ys, w, h)
+                preds = ib.predict67(refs, tabs)
+                ft = frame_tables(22, "cuda")
+                lam = float(np.float32(qp_to_lambda(22)))
+                best = rc.rd_cost(preds, blocks, ib.satd67(preds, blocks),
+                                  22 + 6 * (bd - 8), lam, ft["wts"],
+                                  ft["mode_bits"], tabs, bd)[0]
+                pairs = [(preds[torch.arange(B, device=dev), best.long()],
+                          blocks),
+                         (torch.zeros_like(blocks),
+                          torch.full_like(blocks, mx))]
+                for k, (pp, bb) in enumerate(pairs):
+                    for qp in (22, 37):
+                        a = (pp, bb, qp + 6 * (bd - 8),
+                             float(np.float32(qp_to_lambda(qp))),
+                             frame_tables(qp, "cuda")["wts"], mts, bd)
+                        for o, x_, y_ in zip(("tr_idx", "cost", "dc_only"),
+                                             rc.mts_search(*a),
+                                             rc.mts_search_plain(*a)):
+                            same("mts_search", f"{what} #{k} qp{qp} {o}",
+                                 x_, y_)
+                del refs, blocks, preds, best, pairs
+    earlier = {n: sum(v for k, v in EARLIER_MS.items() if k[0] == n)
+               for n in ("mip_preds", "mts_search")}
+    print("  K10/K11 per frame (device, graph, ms): " + ", ".join(
+        f"{n} {dev_ms[n]:.4f} (earlier design {v:.4f})"
+        for n, v in earlier.items()), flush=True)
     print(f"phase 4b tool kernels: {checks - n0} comparisons, all equal",
           flush=True)
 
@@ -1465,8 +1546,8 @@ def main() -> int:
               f"{sum(len(o[0]) for o in pouts)} bytes, launches "
               + json.dumps(launches), flush=True)
         print(busy_share(torch, lambda: encode(Encoder(pcfg, device=dev),
-                                               FramePlanes, tclip)),
-              flush=True)
+                                               FramePlanes, tclip),
+                         every=True), flush=True)
 
     # --- 7c. the per-class inter search and the rough search paths ---------
     def run_path(path, pcfg, pclip, warm):

@@ -343,6 +343,69 @@ def test_redesigned_k9_equal_plain(card, w, h):
             if kernels.LAUNCHES[k] != before[k]} == n
 
 
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("h", [4, 8, 16, 32, 64])
+def test_redesigned_k10_k11_equal_plain(card, w, h):
+    """K10 mip_preds (templates over (w, h); a thread block per block and
+    candidate group, or several blocks per thread block; each output one
+    vertical step from the upsampled rows) at every (w, h) in {4..64}^2 and
+    K11 mts_search (joint DST7/DCT8 forward passes, the kept coefficients
+    only) at every (w, h) in {4..32}^2, 8 and 10 bits. K10 on random,
+    all-max and checkerboard planes, at one block in the plane's corner,
+    nine at the corners and off any grid (not a multiple of the blocks per
+    thread block) and the plane's grid; K11 on random, smooth and all-max
+    residuals, B = 1, 9 and 37, QP 22 and 37. Every output equal, one
+    launch per comparison."""
+    from uvg266_tpu_torch.ops import mip
+    rng = np.random.default_rng(w * 100 + h + 7)
+    H, W = 3 * h + 6, 4 * w + 8
+    mat = tb.mip_matrix(mip.mip_size_id(w, h), "cuda")
+    gx, gy = np.meshgrid(np.arange(0, W - w + 1, w), np.arange(0, H - h + 1, h))
+    positions = [([W - w], [H - h]),
+                 ([0, W - w, 0, W - w, 3, w + 1, 1, 2 * w + 5, 5],
+                  [0, 0, H - h, H - h, 1, h + 2, 3, 2 * h + 3, 0]),
+                 (gx.ravel(), gy.ravel())]
+    n = {"mip_preds": 0, "mts_search": 0}
+    before = dict(kernels.LAUNCHES)
+    for bd in (8, 10):
+        mx = (1 << bd) - 1
+        planes = (rng.integers(0, mx + 1, (H, W)), np.full((H, W), mx),
+                  (np.indices((H, W)).sum(0) % 2) * mx)
+        for plane in planes:
+            s = _t(plane.astype(np.int32), card)
+            for xs, ys in positions:
+                xs = np.asarray(xs, dtype=np.int32)
+                ys = np.asarray(ys, dtype=np.int32)
+                got = mip.mip_preds(s, xs, ys, w, h, bd, mat)
+                want = mip.mip_preds_plain(s, xs, ys, w, h, bd, mat)
+                assert got.dtype == want.dtype and torch.equal(got, want)
+                n["mip_preds"] += 1
+        if max(w, h) > 32:
+            continue
+        mts = tb.device_mts_tables(w, h, "cuda")
+        for B in (1, 9, 37):
+            src = rng.integers(0, mx + 1, (B, h, w))
+            cases = [(rng.integers(0, mx + 1, (B, h, w)), src),
+                     (np.clip(src + rng.integers(-6, 7, (B, h, w)), 0, mx),
+                      src),
+                     (np.zeros((B, h, w)), np.full((B, h, w), mx))]
+            for pred, blk in cases:
+                pred = _t(pred.astype(np.int32), card)
+                blk = _t(blk.astype(np.int32), card)
+                for qp in (22, 37):
+                    ft = tb.frame_tables(qp, "cuda")
+                    a = (pred, blk, qp + 6 * (bd - 8), 57.9, ft["wts"], mts,
+                         bd)
+                    for x_, y_ in zip(rd.mts_search(*a),
+                                      rd.mts_search_plain(*a)):
+                        assert x_.dtype == y_.dtype and torch.equal(x_, y_)
+                    n["mts_search"] += 1
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {
+        k: v for k, v in n.items() if v}
+
+
 @pytest.mark.parametrize("w,h,bd", [(4, 4, 8), (8, 8, 10), (16, 16, 8),
                                     (32, 16, 10), (64, 64, 8)])
 def test_rough_kernels_equal_plain(card, w, h, bd):

@@ -18,134 +18,186 @@
 // 10 bits; >> of a negative sum is an arithmetic shift.
 //
 // Bound on this card: bytes, by the write of the predictions (n_cand * w * h
-// int32 per block, 113 MB per 832x480 frame over the four square classes);
+// int32 per block, 82 MB per 832x480 frame over the four square classes);
 // the reduced prediction is at most 8 multiply-adds per reduced sample and
-// the upsampling six operations per output. Design: one thread block per
-// block. Both boundaries, their downsampled forms and the reduced
-// predictions of all candidates (at most 768 ints) live in shared memory;
-// the weight matrix (at most 3 KB, uint8) is read through the read-only
-// cache. Each thread then computes output samples directly from the reduced
-// predictions (both upsampling stages fused, no intermediate plane), so
-// neighbouring threads write neighbouring addresses.
+// the upsampling three operations per output and stage. Design: templates
+// over (w, h), so every geometry value is a constant expression and every
+// division a shift. A thread block of 256 threads writes about 4096
+// consecutive ints of the output: CPB candidates of one block where a
+// block's candidates hold more (1092 thread blocks at 64x64, 1170 at
+// 32x32), else all candidates of NB blocks (4 at 8x8, 8 at 4x4). It loads
+// the boundaries (the top row coalesced), downsamples them in parallel,
+// computes the reduced predictions of its candidates in parallel, builds the
+// horizontally upsampled reduced rows once per candidate (red_pred x w), and
+// then forms each output as one vertical step between two such rows (or
+// the top row), four consecutive columns per thread, written as one 16-byte
+// store with the default caching: K3 satd67 reads the predictions next, and
+// one class's (at most 26 MB) fit in the 50 MB L2.
 
 #include "common.cuh"
 
 namespace {
 
+constexpr int NT = 256;                // threads per thread block
+constexpr int TARGET = 4096;           // output ints per thread block
+
+__host__ __device__ constexpr int ilog2c(int v) { return v <= 1 ? 0 : 1 + ilog2c(v >> 1); }
+
+// the largest divisor of nc whose candidates of hw samples fit TARGET
+__host__ __device__ constexpr int cand_per_tb(int nc, int hw) {
+  int best = 1;
+  for (int d = 1; d <= nc; ++d)
+    if (nc % d == 0 && d * hw <= TARGET) best = d;
+  return best;
+}
+
+template <int W, int H>
 struct Mip {
-  int H, W, w, h, size_id, n_modes, red_bdry, red_pred, ups_h, ups_v, half,
-      max_pix;
+  static constexpr int SIZE_ID = (W == 4 && H == 4) ? 0
+                                 : (W == 4 || H == 4 || (W == 8 && H == 8)) ? 1 : 2;
+  static constexpr int N_MODES = SIZE_ID == 0 ? 16 : SIZE_ID == 1 ? 8 : 6;
+  static constexpr int NC = 2 * N_MODES;          // candidates per block
+  static constexpr int RB = SIZE_ID == 0 ? 2 : 4; // red_bdry
+  static constexpr int IN = 2 * RB;               // matrix row length
+  static constexpr int RP = SIZE_ID < 2 ? 4 : 8;  // red_pred
+  static constexpr int RP2 = RP * RP;
+  static constexpr int UH = W / RP, UV = H / RP;  // upsampling factors
+  static constexpr int LGH = ilog2c(UH), LGV = ilog2c(UV);
+  static constexpr int FT = W / RB, FL = H / RB;  // downsampling factors
+  static constexpr int HW = W * H;
+  static constexpr bool SPLIT = HW * NC >= TARGET;  // a block's candidates split
+  static constexpr int CPB = SPLIT ? cand_per_tb(NC, HW) : NC;
+  static constexpr int NB = SPLIT ? 1 : TARGET / (HW * NC);
+  static constexpr int TPB = NC / CPB;            // thread blocks per block
+  static constexpr int U = NB * CPB;              // candidates per thread block
+  static constexpr int ROWS = UH == 1 ? 4 : U * RP * W;   // upsampled rows
+  static_assert(U * HW <= TARGET && HW % 4 == 0, "thread block geometry");
+  static_assert((U * RP2 + ROWS + NB * (W + H + 2 * RB)) * 4 <= 48 * 1024,
+                "static shared memory");
 };
 
-constexpr int MAX_SIDE = 64;
-constexpr int MAX_RED_ALL = 768;       // 2 * n_modes * red_pred^2 at most
+// the downsampled boundary sample k of ref (len = f * RB samples)
+template <int F>
+__device__ __forceinline__ int down(const int* ref, int k) {
+  if constexpr (F == 1) {
+    return ref[k];
+  } else {
+    constexpr int LG = ilog2c(F);
+    int s = 0;
+#pragma unroll
+    for (int q = 0; q < F; ++q) s += ref[k * F + q];
+    return (s + (1 << (LG - 1))) >> LG;
+  }
+}
 
-__device__ __forceinline__ int ilog2(int v) { return 31 - __clz(v); }
-
-__global__ void mip_preds_kernel(const int* __restrict__ src,
-                                 const int* __restrict__ xs,
-                                 const int* __restrict__ ys,
-                                 const uint8_t* __restrict__ mat, Mip g,
-                                 int* __restrict__ preds) {
-  __shared__ int top[MAX_SIDE];
-  __shared__ int left[MAX_SIDE];
-  __shared__ int bd[2][8];             // [transpose][2 * red_bdry]: inp
-  __shared__ int in_off[2];
-  __shared__ int offset[2];
-  __shared__ int red[MAX_RED_ALL];     // [transpose][mode][ry][rx]
-  const int b = blockIdx.x;
+template <int W, int H>
+__global__ void __launch_bounds__(NT)
+    mip_preds_kernel(const int* __restrict__ src, int Hp, int Wp,
+                     const int* __restrict__ xs, const int* __restrict__ ys,
+                     int B, const uint8_t* __restrict__ mat, int half,
+                     int max_pix, int* __restrict__ preds) {
+  using G = Mip<W, H>;
+  __shared__ __align__(16) int top[G::NB][W];
+  __shared__ int left[G::NB][H];
+  __shared__ int dsv[G::NB][2][G::RB];   // [block][top, left][k]
+  __shared__ __align__(16) int red[G::U * G::RP2];     // [u][ry][rx]
+  __shared__ __align__(16) int rows[G::ROWS];          // [u][ry][X]
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int x = xs[b], y = ys[b];
-  const int w = g.w, h = g.h;
+  // the thread block's blocks b0 .. b0 + NB - 1, candidates c0 .. c0 + CPB - 1
+  const int b0 = G::SPLIT ? blockIdx.x / G::TPB : blockIdx.x * G::NB;
+  const int c0 = G::SPLIT ? (blockIdx.x % G::TPB) * G::CPB : 0;
 
-  for (int i = tid; i < w + h; i += nt) {
-    if (i < w) {
-      top[i] = src[uvg::clampi(y - 1, 0, g.H - 1) * g.W +
-                   uvg::clampi(x + i, 0, g.W - 1)];
+  for (int i = tid; i < G::NB * (W + H); i += NT) {
+    const int nb = i / (W + H), j = i % (W + H);
+    const int b = b0 + nb;
+    int v = 0;
+    if (b < B) {
+      const int x = xs[b], y = ys[b];
+      v = j < W ? src[uvg::clampi(y - 1, 0, Hp - 1) * Wp + uvg::clampi(x + j, 0, Wp - 1)]
+                : src[uvg::clampi(y + j - W, 0, Hp - 1) * Wp + uvg::clampi(x - 1, 0, Wp - 1)];
+    }
+    if (j < W) top[nb][j] = v;
+    else left[nb][j - W] = v;
+  }
+  __syncthreads();
+  for (int i = tid; i < G::NB * 2 * G::RB; i += NT) {
+    const int nb = i / (2 * G::RB), s = (i / G::RB) & 1, k = i % G::RB;
+    dsv[nb][s][k] = s == 0 ? down<G::FT>(top[nb], k) : down<G::FL>(left[nb], k);
+  }
+  __syncthreads();
+  // reduced predictions: one thread per candidate and reduced sample
+  for (int i = tid; i < G::U * G::RP2; i += NT) {
+    const int u = i / G::RP2, pos = i % G::RP2;
+    const int nb = u / G::CPB, c = c0 + u % G::CPB;
+    const int t = c >= G::N_MODES ? 1 : 0, m = c - t * G::N_MODES;
+    const int ry = pos / G::RP, rx = pos % G::RP;
+    const int k = t ? rx * G::RP + ry : pos;          // the matrix row
+    const uint8_t* row = mat + (m * G::RP2 + k) * G::IN;
+    const int off = dsv[nb][t][0];
+    int inp[G::IN];
+#pragma unroll
+    for (int q = 0; q < G::RB; ++q) {
+      inp[q] = dsv[nb][t][q] - off;
+      inp[G::RB + q] = dsv[nb][1 - t][q] - off;
+    }
+    inp[0] = G::SIZE_ID < 2 ? half - off : 0;
+    int sum = 0, acc = 0;
+#pragma unroll
+    for (int q = 0; q < G::IN; ++q) {
+      sum += inp[q];
+      acc += static_cast<int>(__ldg(row + q)) * inp[q];
+    }
+    red[i] = uvg::clampi(((acc + 32 - 32 * sum) >> 6) + off, 0, max_pix);
+  }
+  __syncthreads();
+  // horizontally upsampled reduced rows (the reduced rows themselves when
+  // UH == 1)
+  if constexpr (G::UH > 1) {
+    for (int i = tid; i < G::U * G::RP * W; i += NT) {
+      const int u = i / (G::RP * W), rr = (i / W) % G::RP, X = i % W;
+      const int rx = X >> G::LGH, ph = (X & (G::UH - 1)) + 1;
+      const int* r = red + u * G::RP2 + rr * G::RP;
+      const int before = rx == 0 ? left[u / G::CPB][G::UV - 1 + rr * G::UV] : r[rx - 1];
+      rows[i] = ((G::UH - ph) * before + ph * r[rx] + (1 << (G::LGH - 1))) >> G::LGH;
+    }
+    __syncthreads();
+  }
+  const int* hrows = G::UH > 1 ? rows : red;         // [u][RP][W]
+  int* out = preds + (static_cast<long long>(b0) * G::NC + c0) * G::HW;
+  // ints of the thread block's output that belong to real blocks
+  const int valid = G::SPLIT ? G::U * G::HW : min(B - b0, G::NB) * G::NC * G::HW;
+  for (int i = tid; i < G::U * G::HW / 4; i += NT) {
+    const int e = i * 4;
+    const int u = e / G::HW, Y = (e % G::HW) / W, X = e % W;
+    const int* hr = hrows + u * G::RP * W;
+    int4 v;
+    if constexpr (G::UV == 1) {
+      v = *reinterpret_cast<const int4*>(hr + Y * W + X);
     } else {
-      const int j = i - w;
-      left[j] = src[uvg::clampi(y + j, 0, g.H - 1) * g.W +
-                    uvg::clampi(x - 1, 0, g.W - 1)];
+      const int ry = Y >> G::LGV, pv = (Y & (G::UV - 1)) + 1;
+      const int4 cur = *reinterpret_cast<const int4*>(hr + ry * W + X);
+      const int4 bef = ry == 0 ? *reinterpret_cast<const int4*>(&top[u / G::CPB][X])
+                               : *reinterpret_cast<const int4*>(hr + (ry - 1) * W + X);
+      constexpr int R = 1 << (G::LGV - 1);
+      v.x = ((G::UV - pv) * bef.x + pv * cur.x + R) >> G::LGV;
+      v.y = ((G::UV - pv) * bef.y + pv * cur.y + R) >> G::LGV;
+      v.z = ((G::UV - pv) * bef.z + pv * cur.z + R) >> G::LGV;
+      v.w = ((G::UV - pv) * bef.w + pv * cur.w + R) >> G::LGV;
     }
+    if (e < valid) *reinterpret_cast<int4*>(out + e) = v;
   }
-  __syncthreads();
-  const int rb = g.red_bdry;
-  const int in_size = 2 * rb;
-  if (tid < 2) {
-    // one thread per transpose: downsample, build inp and the offset
-    int bdry[8];
-    for (int k = 0; k < in_size; ++k) {
-      // transpose False: [tt | ll]; True: [ll | tt]
-      const bool from_top = (k < rb) != (tid == 1);
-      const int* ref = from_top ? top : left;
-      const int len = from_top ? w : h;
-      const int kk = k < rb ? k : k - rb;
-      int v;
-      if (rb < len) {
-        const int f = len / rb;
-        const int lg = ilog2(f);
-        int s = 0;
-        for (int q = 0; q < f; ++q) s += ref[kk * f + q];
-        v = (s + (1 << (lg - 1))) >> lg;
-      } else {
-        v = ref[kk];
-      }
-      bdry[k] = v;
-    }
-    const int off = bdry[0];
-    int sum = 0;
-    for (int k = 0; k < in_size; ++k) {
-      int v = bdry[k] - off;
-      if (k == 0) v = g.size_id < 2 ? g.half - off : 0;
-      bd[tid][k] = v;
-      sum += v;
-    }
-    in_off[tid] = off;
-    offset[tid] = 32 - 32 * sum;
-  }
-  __syncthreads();
-  const int rp = g.red_pred;
-  const int rp2 = rp * rp;
-  const int n_red = 2 * g.n_modes * rp2;
-  for (int i = tid; i < n_red; i += nt) {
-    const int t = i / (g.n_modes * rp2);
-    const int m = (i / rp2) % g.n_modes;
-    const int pos = i % rp2;           // output position (ry, rx)
-    const int ry = pos / rp, rx = pos % rp;
-    // the matrix row of this output: transposed candidates read k = (rx, ry)
-    const int k = t ? rx * rp + ry : pos;
-    const uint8_t* row = mat + (static_cast<long long>(m) * rp2 + k) * in_size;
-    int acc = offset[t];
-    for (int q = 0; q < in_size; ++q) acc += static_cast<int>(row[q]) * bd[t][q];
-    red[i] = uvg::clampi((acc >> 6) + in_off[t], 0, g.max_pix);
-  }
-  __syncthreads();
-  const int hw = w * h;
-  const int n_out = 2 * g.n_modes * hw;
-  const int uh = g.ups_h, uv = g.ups_v;
-  const int lgh = ilog2(uh), lgv = ilog2(uv);
-  int* out = preds + static_cast<long long>(b) * n_out;
-  for (int i = tid; i < n_out; i += nt) {
-    const int c = i / hw;              // candidate: t * n_modes + m
-    const int Y = (i % hw) / w, X = i % w;
-    const int* r = red + c * rp2;
-    const int rx = X / uh, ph = X % uh + 1;
-    const int ry = Y / uv, pv = Y % uv + 1;
-    // the horizontally upsampled value of reduced row rr at column X
-    auto hval = [&](int rr) -> int {
-      const int cur = r[rr * rp + rx];
-      if (uh == 1) return cur;
-      const int before = rx == 0 ? left[uv - 1 + rr * uv] : r[rr * rp + rx - 1];
-      return ((uh - ph) * before + ph * cur + (1 << (lgh - 1))) >> lgh;
-    };
-    int v = hval(ry);
-    if (uv > 1) {
-      const int before = ry == 0 ? top[X] : hval(ry - 1);
-      v = ((uv - pv) * before + pv * v + (1 << (lgv - 1))) >> lgv;
-    }
-    out[i] = v;
-  }
+}
+
+template <int W, int H>
+int launch(const void* src, int Hp, int Wp, const void* xs, const void* ys,
+           int B, int bitdepth, const void* mat, void* preds, cudaStream_t st) {
+  using G = Mip<W, H>;
+  const int grid = G::SPLIT ? B * G::TPB : (B + G::NB - 1) / G::NB;
+  mip_preds_kernel<W, H><<<grid, NT, 0, st>>>(
+      static_cast<const int*>(src), Hp, Wp, static_cast<const int*>(xs),
+      static_cast<const int*>(ys), B, static_cast<const uint8_t*>(mat),
+      1 << (bitdepth - 1), (1 << bitdepth) - 1, static_cast<int*>(preds));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -154,20 +206,15 @@ extern "C" int mip_preds(const void* src, int H, int W, const void* xs,
                          const void* ys, int B, int w, int h, int bitdepth,
                          const void* mat, void* preds, void* stream) {
   if (B <= 0) return static_cast<int>(cudaSuccess);
-  if (w > MAX_SIDE || h > MAX_SIDE || w < 4 || h < 4)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int size_id = (w == 4 && h == 4) ? 0
-                      : (w == 4 || h == 4 || (w == 8 && h == 8)) ? 1 : 2;
-  const int n_modes = size_id == 0 ? 16 : size_id == 1 ? 8 : 6;
-  const int red_pred = size_id < 2 ? 4 : 8;
-  Mip g{H, W, w, h, size_id, n_modes, size_id == 0 ? 2 : 4, red_pred,
-        w / red_pred, h / red_pred, 1 << (bitdepth - 1), (1 << bitdepth) - 1};
-  const int threads = w * h >= 256 ? 256 : 64;
-  mip_preds_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(src), static_cast<const int*>(xs),
-      static_cast<const int*>(ys), static_cast<const uint8_t*>(mat), g,
-      static_cast<int*>(preds));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define UVG_MIP(WW, HH)                                                          \
+  if (w == WW && h == HH)                                                        \
+    return launch<WW, HH>(src, H, W, xs, ys, B, bitdepth, mat, preds, st);
+#define UVG_MIP_ROW(WW) UVG_MIP(WW, 4) UVG_MIP(WW, 8) UVG_MIP(WW, 16) UVG_MIP(WW, 32) UVG_MIP(WW, 64)
+  UVG_MIP_ROW(4) UVG_MIP_ROW(8) UVG_MIP_ROW(16) UVG_MIP_ROW(32) UVG_MIP_ROW(64)
+#undef UVG_MIP_ROW
+#undef UVG_MIP
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 UVG_ERROR_ENTRY(mip_preds)

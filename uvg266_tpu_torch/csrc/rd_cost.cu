@@ -22,13 +22,14 @@
 // 64x64, so the 91-block class runs 91 full thread blocks instead of 91
 // quarter-filled ones) and 256 / (w*h/4) blocks per thread block below
 // 32x32 (16 at 8x8), all in lockstep between the five barriers. Each 1-D
-// pass is an even/odd partial butterfly (VVC's DCT2 matrices satisfy
-// M[k][n-1-x] = (-1)^k M[k][x]): a forward pass sums (v[x] +- v[n-1-x]) *
-// M[k][x] over half the points, an inverse pass forms the even and the odd
-// half sums once and writes outputs x and n-1-x from them, so each pass does
-// half the multiply-adds of the matrix product. The sums never leave int32
-// (|residual| < 2^10, coefficients within +-91, at most 64 terms, int16
-// inputs to the second and later passes), so reassociating them is exact.
+// pass is an even/odd partial butterfly (butterfly.cuh; VVC's DCT2
+// matrices satisfy M[k][n-1-x] = (-1)^k M[k][x]): a forward pass sums
+// (v[x] +- v[n-1-x]) * M[k][x] over half the points, an inverse pass forms
+// the even and the odd half sums once and writes outputs x and n-1-x from
+// them, so each pass does half the multiply-adds of the matrix product.
+// The sums never leave int32 (|residual| < 2^10, coefficients within +-91,
+// at most 64 terms, int16 inputs to the second and later passes), so
+// reassociating them is exact.
 // Each thread computes two outputs on each of two lines per pass; the
 // matrix pairs (M[2j][x], M[2j+1][x]) sit in shared memory in both the
 // forward (x-major) and the inverse (j-major) order, so a warp reads them
@@ -38,6 +39,7 @@
 // counts and the SSD are reduced with shared-memory integer atomics, which
 // are exact in any order.
 
+#include "butterfly.cuh"
 #include "common.cuh"
 
 namespace {
@@ -58,70 +60,6 @@ struct Geo {
   static constexpr size_t SMEM = (2 * CW + (SQ ? 0 : 2 * CH)) * sizeof(int2) +
                                  static_cast<size_t>(U) * 2 * PLANE * sizeof(int);
 };
-
-// (M[2j][i], M[2j+1][i]) of an n-point matrix (rows = frequencies), in the
-// forward order fwd[i * n/2 + j] and the inverse order inv[j * n/2 + i]
-template <int N>
-__device__ __forceinline__ void load_pairs(const int8_t* __restrict__ m,
-                                           int2* fwd, int2* inv, int tid, int nt) {
-  constexpr int HN = N / 2;
-  for (int e = tid; e < HN * HN; e += nt) {
-    const int i = e / HN, j = e % HN;
-    const int2 c = make_int2(m[(2 * j) * N + i], m[(2 * j + 1) * N + i]);
-    fwd[i * HN + j] = c;
-    inv[j * HN + i] = c;
-  }
-}
-
-// forward 1-D pass over NL lines of N points (element stride ES, line
-// stride LS): the thread's outputs 2j and 2j+1 on lines g and g + NL/2,
-// handed to emit(line, k, sum)
-template <int N, int NL, int ES, int LS, typename Emit>
-__device__ __forceinline__ void fwd_pass(const int* in, const int2* fwd, int lt,
-                                         Emit emit) {
-  constexpr int HN = N / 2;
-  const int j = lt % HN, g = lt / HN;
-  const int* l0 = in + g * LS;
-  const int* l1 = in + (g + NL / 2) * LS;
-  int e0 = 0, o0 = 0, e1 = 0, o1 = 0;
-#pragma unroll 4
-  for (int i = 0; i < HN; ++i) {
-    const int2 c = fwd[i * HN + j];
-    const int a0 = l0[i * ES], b0 = l0[(N - 1 - i) * ES];
-    const int a1 = l1[i * ES], b1 = l1[(N - 1 - i) * ES];
-    e0 += (a0 + b0) * c.x;
-    o0 += (a0 - b0) * c.y;
-    e1 += (a1 + b1) * c.x;
-    o1 += (a1 - b1) * c.y;
-  }
-  emit(g, 2 * j, e0);
-  emit(g, 2 * j + 1, o0);
-  emit(g + NL / 2, 2 * j, e1);
-  emit(g + NL / 2, 2 * j + 1, o1);
-}
-
-// inverse 1-D pass: the thread's outputs i and N-1-i on lines g and g + NL/2
-template <int N, int NL, int ES, int LS, typename Emit>
-__device__ __forceinline__ void inv_pass(const int* in, const int2* inv, int lt,
-                                         Emit emit) {
-  constexpr int HN = N / 2;
-  const int i = lt % HN, g = lt / HN;
-  const int* l0 = in + g * LS;
-  const int* l1 = in + (g + NL / 2) * LS;
-  int e0 = 0, o0 = 0, e1 = 0, o1 = 0;
-#pragma unroll 4
-  for (int j = 0; j < HN; ++j) {
-    const int2 c = inv[j * HN + i];
-    e0 += l0[(2 * j) * ES] * c.x;
-    o0 += l0[(2 * j + 1) * ES] * c.y;
-    e1 += l1[(2 * j) * ES] * c.x;
-    o1 += l1[(2 * j + 1) * ES] * c.y;
-  }
-  emit(g, i, e0 + o0);
-  emit(g, N - 1 - i, e0 - o0);
-  emit(g + NL / 2, i, e1 + o1);
-  emit(g + NL / 2, N - 1 - i, e1 - o1);
-}
 
 template <int W, int H>
 __global__ void __launch_bounds__(Geo<W, H>::NT)
@@ -149,8 +87,8 @@ __global__ void __launch_bounds__(Geo<W, H>::NT)
   int* A = planes + u * 2 * G::PLANE;       // [H][SW]
   int* Bf = A + G::PLANE;                   // [H][SW]
 
-  load_pairs<W>(mat_w, fw, iw, tid, G::NT);
-  if (!G::SQ) load_pairs<H>(mat_h, fh, ih, tid, G::NT);
+  uvg::load_pairs<W>(mat_w, fw, iw, tid, G::NT);
+  if (!G::SQ) uvg::load_pairs<H>(mat_h, fh, ih, tid, G::NT);
 
   // first minimum of satd + sqrt(lam) * mode_bits over the M candidates
   {
@@ -200,14 +138,14 @@ __global__ void __launch_bounds__(Geo<W, H>::NT)
   }
   __syncthreads();
   // forward, rows: Bf[y][k] = int16((sum_x A[y][x] * Mw[k][x] + rnd) >> s1)
-  fwd_pass<W, H, 1, G::SW>(A, fw, lt, [&](int y, int k, int acc) {
+  uvg::fwd_pass<W, H, 1, G::SW>(A, fw, lt, [&](int y, int k, int acc) {
     Bf[y * G::SW + k] = uvg::wrap16((acc + (1 << (p.s1 - 1))) >> p.s1);
   });
   __syncthreads();
   // forward, columns, then quant, bucket counts and dequant in place:
   // A[k2][x] = dequant(quant(int16((sum_y Mh[k2][y] * Bf[y][x] + rnd) >> s2)))
   int c0 = 0, c1 = 0, c2 = 0, c3 = 0;       // bucket counts, in registers
-  fwd_pass<H, W, G::SW, 1>(Bf, fh, lt, [&](int x, int k2, int acc) {
+  uvg::fwd_pass<H, W, G::SW, 1>(Bf, fh, lt, [&](int x, int k2, int acc) {
     const int c = uvg::wrap16((acc + (1 << (p.s2 - 1))) >> p.s2);
     int level = uvg::wrap_mul_add(abs(c), p.scale, p.add) >> p.q_bits;
     level = uvg::clampi(level, 0, 32767);
@@ -225,13 +163,13 @@ __global__ void __launch_bounds__(Geo<W, H>::NT)
   if (c3) atomicAdd(&cnt[u][3], c3);
   __syncthreads();
   // inverse, columns: Bf[y][x] = clip16((sum_k2 Mh[k2][y] * A[k2][x] + rnd) >> si1)
-  inv_pass<H, W, G::SW, 1>(A, ih, lt, [&](int x, int y, int acc) {
+  uvg::inv_pass<H, W, G::SW, 1>(A, ih, lt, [&](int x, int y, int acc) {
     Bf[y * G::SW + x] = uvg::clip16((acc + (1 << (p.si1 - 1))) >> p.si1);
   });
   __syncthreads();
   // inverse, rows, reconstruction and SSD
   unsigned ssd = 0u;
-  inv_pass<W, H, 1, G::SW>(Bf, iw, lt, [&](int y, int x, int acc) {
+  uvg::inv_pass<W, H, 1, G::SW>(Bf, iw, lt, [&](int y, int x, int acc) {
     const int r = uvg::clip16((acc + (1 << (p.si2 - 1))) >> p.si2);
     const int i = y * W + x;
     const int pv = valid ? pred[i] : 0;

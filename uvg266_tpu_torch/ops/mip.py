@@ -139,16 +139,13 @@ def _ups(pred: torch.Tensor, boundary: torch.Tensor, factor: int):
     return out.reshape(pred.shape[:-1] + (n * factor,))
 
 
-def mip_preds_plain(src: torch.Tensor, xs, ys, w: int, h: int,
-                    bitdepth: int, mat: torch.Tensor) -> torch.Tensor:
-    """K10, plain version: src [H, W] int32, block origins xs, ys [B] (host
-    arrays), ``mat`` the size id's weight matrix [n_modes, red_pred^2,
-    2*red_bdry] (ops.tables.mip_matrix) -> preds [B, 2*n_modes, h, w]
-    int32: transpose False modes 0..n-1, then transpose True. Reference
-    samples with the open-loop availability of the batched search: the row
-    above and the column left of the block in the source plane, clamped to
-    the plane (the reference's edge padding)."""
-    size_id, n_modes, red_bdry, red_pred, ups_h, ups_v = mip_geometry(w, h)
+def _mip_reduced(src: torch.Tensor, xs, ys, w: int, h: int, bitdepth: int,
+                 mat: torch.Tensor):
+    """The reduced predictions of every (mode, transpose) candidate ->
+    (red [B, 2*n_modes, red_pred, red_pred] int64, transposed back where
+    the candidate is transposed; top [B, w] and left [B, h], the block's
+    reference samples)."""
+    size_id, n_modes, red_bdry, red_pred, _uh, _uv = mip_geometry(w, h)
     H, W = src.shape
     xs, ys = positions_on(xs, ys, w, h, H, W, src.device)
     xs, ys = xs.long(), ys.long()
@@ -161,7 +158,7 @@ def mip_preds_plain(src: torch.Tensor, xs, ys, w: int, h: int,
              .clamp(0, H - 1), (xs - 1).clamp(0, W - 1)[:, None]]
     tt = _ds(top, red_bdry)
     ll = _ds(left, red_bdry)
-    outs = []
+    reds = []
     for transpose in (False, True):
         bdry = torch.cat([ll, tt], -1) if transpose else torch.cat([tt, ll], -1)
         in_off = bdry[:, :1]
@@ -175,18 +172,66 @@ def mip_preds_plain(src: torch.Tensor, xs, ys, w: int, h: int,
                + offset[:, None, None]) >> MIP_SHIFT
         red = (red + in_off[:, :, None]).clamp(0, maxv)
         red = red.reshape(-1, n_modes, red_pred, red_pred)
-        if transpose:
-            red = red.transpose(2, 3)
-        out = red
-        if ups_h > 1:
-            bl = left[:, ups_v - 1::ups_v][:, :red_pred]
-            out = _ups(out, bl[:, None, :].expand(-1, n_modes, -1), ups_h)
-        if ups_v > 1:
-            out = _ups(out.transpose(2, 3),
-                       top[:, None, :].expand(-1, n_modes, -1),
-                       ups_v).transpose(2, 3)
-        outs.append(out)
-    return torch.cat(outs, dim=1).to(torch.int32).contiguous()
+        reds.append(red.transpose(2, 3) if transpose else red)
+    return torch.cat(reds, dim=1), top, left
+
+
+def mip_preds_plain(src: torch.Tensor, xs, ys, w: int, h: int,
+                    bitdepth: int, mat: torch.Tensor) -> torch.Tensor:
+    """K10, plain version: src [H, W] int32, block origins xs, ys [B] (host
+    arrays), ``mat`` the size id's weight matrix [n_modes, red_pred^2,
+    2*red_bdry] (ops.tables.mip_matrix) -> preds [B, 2*n_modes, h, w]
+    int32: transpose False modes 0..n-1, then transpose True. Reference
+    samples with the open-loop availability of the batched search: the row
+    above and the column left of the block in the source plane, clamped to
+    the plane (the reference's edge padding)."""
+    _sid, _n, _rb, red_pred, ups_h, ups_v = mip_geometry(w, h)
+    out, top, left = _mip_reduced(src, xs, ys, w, h, bitdepth, mat)
+    n_cand = out.shape[1]
+    if ups_h > 1:
+        bl = left[:, ups_v - 1::ups_v][:, :red_pred]
+        out = _ups(out, bl[:, None, :].expand(-1, n_cand, -1), ups_h)
+    if ups_v > 1:
+        out = _ups(out.transpose(2, 3),
+                   top[:, None, :].expand(-1, n_cand, -1),
+                   ups_v).transpose(2, 3)
+    return out.to(torch.int32).contiguous()
+
+
+def mip_preds_seg(src: torch.Tensor, xs, ys, w: int, h: int,
+                  bitdepth: int, mat: torch.Tensor) -> torch.Tensor:
+    """K10's output as csrc/mip_preds.cu forms it, in plain PyTorch: the
+    horizontally upsampled reduced rows (red_pred rows of w samples per
+    candidate, the left reference sample before column 0), then each
+    output sample as one vertical step between two of those rows (the top
+    reference row before row 0), with shifts and masks where the
+    reference divides. Same arguments and result as mip_preds_plain, which
+    it must equal."""
+    _sid, _n, _rb, red_pred, ups_h, ups_v = mip_geometry(w, h)
+    red, top, left = _mip_reduced(src, xs, ys, w, h, bitdepth, mat)
+    B, n_cand = red.shape[:2]
+    lgh, lgv = ups_h.bit_length() - 1, ups_v.bit_length() - 1
+    X = torch.arange(w, device=src.device)
+    rx, ph = X >> lgh, (X & (ups_h - 1)) + 1
+    if ups_h > 1:
+        cur = red[..., rx]                             # [B, C, red_pred, w]
+        bl = left[:, ups_v - 1 + ups_v * torch.arange(red_pred,
+                                                      device=src.device)]
+        before = torch.where(rx == 0, bl[:, None, :, None],
+                             red[..., (rx - 1).clamp(min=0)])
+        rows = ((ups_h - ph) * before + ph * cur + (1 << (lgh - 1))) >> lgh
+    else:
+        rows = red
+    if ups_v == 1:
+        return rows.to(torch.int32).contiguous()
+    Y = torch.arange(h, device=src.device)
+    ry, pv = Y >> lgv, (Y & (ups_v - 1)) + 1
+    cur = rows[:, :, ry]                               # [B, C, h, w]
+    before = torch.where((ry == 0)[:, None], top[:, None, None, :],
+                         rows[:, :, (ry - 1).clamp(min=0)])
+    out = ((ups_v - pv[:, None]) * before + pv[:, None] * cur
+           + (1 << (lgv - 1))) >> lgv
+    return out.to(torch.int32).contiguous()
 
 
 def mip_preds(src: torch.Tensor, xs, ys, w: int, h: int, bitdepth: int,

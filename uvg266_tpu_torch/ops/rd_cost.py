@@ -246,6 +246,146 @@ def mts_search_plain(pred, src, qp: int, lam: float, wts, mts: dict,
     return tr_idx, cost.gather(1, best[:, None])[:, 0], dcs[:, 0].clone()
 
 
+def _in32(*ts):
+    """Raise unless every sum lies inside int32 (the kernel's sums are
+    int32, the emulation's int64)."""
+    for t in ts:
+        if t.numel() and (t.min() < -(1 << 31) or t.max() >= 1 << 31):
+            raise OverflowError("a transform sum leaves int32")
+    return ts[0] if len(ts) == 1 else ts
+
+
+def _bfly_fwd(v, m):
+    """The even/odd partial butterfly of a DCT2 along the last axis
+    (M[k][n-1-x] = (-1)^k M[k][x]): v [..., n], m [n, n] -> sums [..., n],
+    output 2j from (v[x] + v[n-1-x]) and 2j+1 from (v[x] - v[n-1-x]) over
+    x < n/2."""
+    n = v.shape[-1]
+    hn = n // 2
+    r = v.flip(-1)[..., :hn]
+    out = torch.empty_like(v)
+    out[..., 0::2] = _imatmul(v[..., :hn] + r, m[0::2, :hn].T)
+    out[..., 1::2] = _imatmul(v[..., :hn] - r, m[1::2, :hn].T)
+    return _in32(out)
+
+
+def _bfly_inv(c, m):
+    """The inverse DCT2 along the last axis from the even and the odd half
+    sums: out[i] = e + o, out[n-1-i] = e - o, i < n/2."""
+    hn = c.shape[-1] // 2
+    e = _imatmul(c[..., 0::2], m[0::2, :hn])
+    o = _imatmul(c[..., 1::2], m[1::2, :hn])
+    return _in32(torch.cat([e + o, (e - o).flip(-1)], -1))
+
+
+def _joint_fwd(v, s, k: int):
+    """DST7 and DCT8 along the last axis from one product (DCT8[k][x] =
+    (-1)^k DST7[k][n-1-x]): with a = v[x] + v[n-1-x], d = v[x] - v[n-1-x]
+    (x < n/2), s1 = sum a (S[k][x] + S[k][n-1-x]) and s2 = sum d (S[k][x] -
+    S[k][n-1-x]) the DST7 output is (s1 + s2) / 2 and the DCT8 output
+    (-1)^k (s1 - s2) / 2; the first k outputs of each. s: the DST7 matrix
+    [n, n] (rows = frequencies)."""
+    n = v.shape[-1]
+    hn = n // 2
+    r = v.flip(-1)[..., :hn]
+    sr = s.flip(-1)
+    s1, s2 = _in32(_imatmul(v[..., :hn] + r, (s[:k, :hn] + sr[:k, :hn]).T),
+                   _imatmul(v[..., :hn] - r, (s[:k, :hn] - sr[:k, :hn]).T))
+    if ((s1 + s2) & 1).any():
+        raise ArithmeticError("s1 and s2 differ in parity")
+    sign = 1 - 2 * (torch.arange(k, device=v.device) & 1)
+    return (s1 + s2) >> 1, ((s1 - s2) >> 1) * sign
+
+
+def dct8_of(s):
+    """The DCT8 matrix from the DST7 matrix s of the same size:
+    DCT8[k][x] = (-1)^k DST7[k][n-1-x]."""
+    sign = 1 - 2 * (torch.arange(s.shape[0], device=s.device) & 1)
+    return sign[:, None] * s.flip(-1)
+
+
+def mts_search_sep(pred, src, qp: int, lam: float, wts, mts: dict,
+                   bitdepth: int):
+    """K11's arithmetic as csrc/mts_search.cu computes it, in plain
+    PyTorch: the DCT2 candidate on even/odd partial butterflies; one
+    forward row pass for the four DST7/DCT8 candidates and one column
+    pass per horizontal type, each giving DST7 and DCT8 from one product
+    (_joint_fwd), and at 32 points only the 16 coefficients kept; per
+    candidate the quantiser, the dequantiser and the inverse passes over
+    the kept coefficients alone. The DCT8 matrices come from the DST7
+    ones (dct8_of). Same arguments and results as mts_search_plain, which
+    it must equal bit for bit; raises where a sum would leave int32."""
+    B, h, w = pred.shape
+    c = quant_consts(w, h, bitdepth, qp)
+    s1, s2 = fwd_shifts(w, h, bitdepth)
+    si1, si2 = inv_shifts(bitdepth)
+    kw, kh = (16 if w == 32 else w), (16 if h == 32 else h)
+    dev = pred.device
+    lam32 = torch.tensor(np.float32(lam), device=dev)
+    d2w, d2h = mts["mts_w"][0].long(), mts["mts_h"][0].long()
+    sw, sh = mts["mts_w"][1].long(), mts["mts_h"][1].long()
+    # vertical and horizontal matrices of candidates 1-4 (tr_idx 2-5)
+    vert = (sh, sh, dct8_of(sh), dct8_of(sh))
+    hor = (sw, dct8_of(sw), sw, dct8_of(sw))
+    n_c = len(MTS_IDX)
+    cost = torch.empty((B, n_c), dtype=torch.float32, device=dev)
+    dcs = torch.empty((B, n_c), dtype=torch.bool, device=dev)
+    step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
+
+    def fwd_shift(x, s):
+        return _wrap((x + (1 << (s - 1))) >> s, 16)
+
+    def inv_shift(x, s):
+        return ((x + (1 << (s - 1))) >> s).clamp(-32768, 32767)
+
+    for b0 in range(0, B, step):
+        sl = slice(b0, min(b0 + step, B))
+        p64, s64 = pred[sl].long(), src[sl].long()
+        resid = s64 - p64
+        # rows: the DCT2 butterfly, then DST7 and DCT8 jointly
+        r2 = fwd_shift(_bfly_fwd(resid, d2w), s1)
+        rs, rc = (fwd_shift(t, s1) for t in _joint_fwd(resid, sw, kw))
+        # columns (the lines last, then back): [b, k2, k]
+        coefs = [fwd_shift(_bfly_fwd(r2.mT, d2h), s2).mT]
+        # [horizontal]_[vertical]: DST7 (s) or DCT8 (c)
+        s_s, s_c = _joint_fwd(rs.mT, sh, kh)
+        c_s, c_c = _joint_fwd(rc.mT, sh, kh)
+        coefs += [fwd_shift(t, s2).mT for t in (s_s, c_s, s_c, c_c)]
+        for ci, coef in enumerate(coefs):
+            level = _wrap(coef.abs() * c["scale"] + c["add"], 32) \
+                >> c["q_bits"]
+            level = level.clamp(0, 32767)
+            n1, n2, n3 = ((level == 1).sum(dim=(-2, -1)),
+                          (level == 2).sum(dim=(-2, -1)),
+                          (level >= 3).sum(dim=(-2, -1)))
+            nz = n1 + n2 + n3
+            cnt = [(h * w - nz).to(torch.float32)] + \
+                [n.to(torch.float32) for n in (n1, n2, n3)]
+            bits = ((cnt[0] * wts[0] + cnt[1] * wts[1]) + cnt[2] * wts[2]) \
+                + cnt[3] * wts[3]
+            dq = _wrap(coef.sign() * level * c["iscale"]
+                       + (1 << (c["dq_shift"] - 1)), 32) >> c["dq_shift"]
+            dq = dq.clamp(-32768, 32767)
+            if ci == 0:
+                u = inv_shift(_bfly_inv(dq.mT, d2h), si1).mT
+                r = inv_shift(_bfly_inv(u, d2w), si2)
+            else:
+                u = inv_shift(_in32(_imatmul(vert[ci - 1][:kh].T, dq)), si1)
+                r = inv_shift(_in32(_imatmul(u, hor[ci - 1][:kw])), si2)
+            d = s64 - (p64 + r).clamp(0, (1 << bitdepth) - 1)
+            ssd = _wrap((d * d).sum(dim=(-2, -1)), 32).to(torch.float32)
+            bits = bits + (1.0 if ci == 0 else 1.0 + ci)
+            dc_only = (nz - (level[:, 0, 0] != 0).long()) == 0
+            cc = ssd + lam32 * bits
+            if ci > 0:
+                cc = torch.where(dc_only, cc + np.float32(1e30), cc)
+            cost[sl, ci] = cc
+            dcs[sl, ci] = dc_only
+    best = torch.argmin(cost, dim=1)
+    tr_idx = torch.tensor(MTS_IDX, dtype=torch.int32, device=dev)[best]
+    return tr_idx, cost.gather(1, best[:, None])[:, 0], dcs[:, 0].clone()
+
+
 def mts_search(pred, src, qp: int, lam: float, wts, mts: dict,
                bitdepth: int):
     """K11: mts_search_plain on the CPU, the CUDA kernel on the card."""
@@ -261,6 +401,9 @@ def mts_search(pred, src, qp: int, lam: float, wts, mts: dict,
             or mts["mts_h"].dtype != torch.int8):
         raise ValueError("mts_search: expects int32 pred, src [B, h, w] with "
                          "w, h <= 32, float32 wts and the class's MTS tables")
+    if pred.data_ptr() % 16 or src.data_ptr() % 16:
+        raise ValueError("mts_search: pred and src must be 16-byte aligned "
+                         "(the kernel reads them four samples at a time)")
     c = quant_consts(w, h, bitdepth, qp)
     keep = np.ascontiguousarray(mts["mts_keep"], dtype=np.int32)
     idx = np.ascontiguousarray(MTS_IDX, dtype=np.int32)
