@@ -19,15 +19,23 @@ Phases, one line each (or a few), any failure exits non-zero:
      candidates, on the class grid, on one block and on 37 blocks, and at
      the largest residual). Times from CUDA events over 20 calls (and,
      for K1-K4 and K9a-K11, over 20 calls captured in a CUDA graph and
-     replayed: their device time without the host's launch path), launches
+     replayed: their device time without the host's launch path; also K7
+     and K8 in phase 4), launches
      per frame and the least time the card could take (bytes over 3.35
      TB/s or operations over 67 T/s);
   4. the same for the inter kernels at 832x480: K5 pseudo_recon (frame,
      random and edge planes, 8 and 10 bits, three QPs), K7 frame_inter (one
-     reference, every inter class of the dense search), K6 rd_cost_pred on
-     K7's predictions, K8 leaf_qpel (the frame's 16x16, 32x32 and 64x64
-     blocks as leaves of 4, 16 and 64 tiles, and the 64x64 leaves at the
-     largest 10-bit residual): all outputs equal, tolerance 0;
+     reference, every inter class of the dense search; its tile pass alone
+     against the plain tile SSD maps), K6 rd_cost_pred on K7's
+     predictions, K8 leaf_qpel (the frame's 16x16, 32x32 and 64x64 blocks
+     as leaves of 4, 16 and 64 tiles, and the 64x64 leaves at the largest
+     10-bit residual; its tile pass alone against the plain per-tile
+     SATDs): all outputs equal, tolerance 0. K7 and K8 are split by pass on
+     the graph (the C entry with no class or no leaf runs the tile pass
+     alone), and K7's tile pass is timed beside the reference's own
+     formulation as a float32 PyTorch chain (grouped conv2d, conv2d, b^2,
+     b^2 - 2 corr + r^2; its largest difference from the kernel's map
+     printed): the row's library time;
      then the kernels of the all-intra tool paths at the same class shapes
      (frame, random and edge planes, 8 and 10 bits): K12a refs_blocks and
      K10 mip_preds at every class position, K3 satd67 and K4 rd_cost over
@@ -69,10 +77,14 @@ Phases, one line each (or a few), any failure exits non-zero:
      low-delay, rdoq off) over its 40-frame sequence: host ME, K5 and K1-K4
      per P frame (the intra screen); the launch counts must match the size
      classes and slice types; wall fps and device busy time;
+  6b. the low-delay path with rdoq on (phase 6's configuration with the
+     Config default, as the medium preset sets it), 5 frames: host ME, K5
+     and K1-K4 as in phase 6, K8 once per P/B frame with inter leaves;
+     wall fps and device busy time split over every kernel;
   7. the dense inter path: ime_algorithm=2, rdoq on, random-access GOP 8,
      9 frames at 832x480: K1-K4 per frame, K7 per reference, K6 per
      reference and inter class, K8 per frame with inter leaves; wall fps
-     and device busy time;
+     and device busy time split over every kernel;
   7b. the MIP path: the all-intra configuration with mip=True, 3 frames at
      832x480, every class through dispatch_blocks: per class and frame K1
      and K2 once, K3 and K4 twice (67 modes, then the MIP candidates), K10
@@ -93,13 +105,14 @@ Phases, one line each (or a few), any failure exits non-zero:
      K12b, the two K12c selections and K6); wall fps and device busy time
      of each, split over every kernel with its launch count;
   8. the card against the CPU (plain versions): all-intra frame 0, the
-     first three LD frames (I, P, P), a three-frame clip of the dense path
+     first three LD frames (I, P, P), the first two rdoq LD frames (I, P),
+     a three-frame clip of the dense path
      (I, P, B), frame 0 of the MIP and MTS paths, the first two frames of
      the 10-bit LD path (I, P), a three-frame clip of the slow-tools RA
      path (I, P, B) and frame 0 of the rough path must give byte-identical
      access units and recon;
-  9. 192x128 clips encoded on the card (all-intra, LD, dense RA, MIP, MTS,
-     10-bit LD, slow-tools RA, rough) decode through the port's oracle
+  9. 192x128 clips encoded on the card (all-intra, LD, rdoq LD, dense RA,
+     MIP, MTS, 10-bit LD, slow-tools RA, rough) decode through the port's oracle
      decoder, with their references, to the encoder's reconstruction;
  10. a JSON line with each kernel's numbers, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -121,6 +134,7 @@ LD_FRAMES, LD_QP = 40, 27          # bench.py:63, :77
 RA_FRAMES = 9                      # IDR + one random-access GOP of 8
 TOOL_FRAMES = 3                    # the MIP and MTS paths (Python finalize)
 LD10_FRAMES = 5                    # the 10-bit LD path: IDR + 4 P/B
+RDOQ_FRAMES = 5                    # the rdoq-on LD path: IDR + 4 P/B
 ROUGH_FRAMES = 3                   # the rough all-intra path
 R = 16                             # full-pel search range of the dense path
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -152,7 +166,7 @@ INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
 # outputs and launch; K10's C entry is graphed, since its wrapper copies the
 # positions from the host)
 GRAPH_KERNELS = INTRA_KERNELS + ("fullpel_search", "frac_search", "mip_preds",
-                                 "mts_search")
+                                 "mts_search", "frame_inter", "leaf_qpel")
 TR_KERNELS = ("fwd_transform", "inv_transform", "quant_levels",
               "dequant_levels")
 TR_QPS = (0, 22, 27, 37)      # qp_scaled of phase 4d, and the largest
@@ -175,10 +189,19 @@ EARLIER_MS = {("predict67", 64): 0.1222, ("predict67", 32): 0.1266,
 # per block and offset), ms per reference at 10 bits (16x16 + 8x8), CUDA
 # events, this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md)
 K9_BEFORE_MS = {"fullpel_search": 0.2907, "frac_search": 1.0524}
+# K7 and K8 before their redesign (a thread block per tile, one thread per
+# offset or per sample), device ms on a CUDA graph by pass, phase 4's
+# inputs, tools/k7_k8_times.py on an NVIDIA H100 80GB HBM3 at 700.00 W
+K78_BEFORE_MS = {("frame_inter", "whole"): 0.1978,
+                 ("frame_inter", "tile"): 0.1201,
+                 ("leaf_qpel 16x16", "whole"): 0.3861,
+                 ("leaf_qpel 16x16", "tile"): 0.3809,
+                 ("leaf_qpel 64x64", "whole"): 0.3838,
+                 ("leaf_qpel 64x64", "tile"): 0.3636}
 # the path whose run gives each kernel's "launches" in the JSON line
 MAIN_PATH = {**dict.fromkeys(INTRA_KERNELS, "all-intra"),
              "pseudo_recon": "low-delay", "rd_cost_pred": "dense RA",
-             "frame_inter": "dense RA", "leaf_qpel": "dense RA",
+             "frame_inter": "dense RA", "leaf_qpel": "rdoq LD",
              "mip_preds": "MIP", "refs_blocks": "MIP", "mts_search": "MTS",
              "fullpel_search": "10-bit LD", "frac_search": "10-bit LD",
              "predict_modes": "rough", "rough_refine": "rough",
@@ -221,6 +244,13 @@ def ld_config(Config, w=W, h=H):
                   intra_period=64, sao_type=0, alf_type=0,
                   deblock_enable=True, rdoq_enable=False,
                   signhide_enable=False, dep_quant=False, wpp=False)
+
+
+def rdoq_ld_config(Config, w=W, h=H):
+    """The low-delay configuration with rdoq on (the Config default and the
+    medium preset's setting): the host-ME path refines its inter leaves in
+    K8 on every P/B frame."""
+    return dataclasses.replace(ld_config(Config, w, h), rdoq_enable=True)
 
 
 def mip_config(Config, w=W, h=H):
@@ -314,6 +344,115 @@ def graph_ms(torch, fn, n: int, reps: int = 5) -> float:
     ms = t0.elapsed_time(t1) / (n * reps)
     del g
     return ms
+
+
+def k7_inputs(torch, frames, dev):
+    """Phase 4's K7 inputs: frame 1 (src) against frame 0 edge-padded by R,
+    the rate penalty and bits table at QP27."""
+    from uvg266_tpu_torch.control.partition import qp_to_lambda
+    from uvg266_tpu_torch.ops import me_frame as mf
+    from uvg266_tpu_torch.ops.me import make_mv_penalty
+    cur = torch.from_numpy(frames[1][0]).to(dev)
+    ref_pad = torch.from_numpy(
+        np.pad(frames[0][0], R, mode="edge").astype(np.int32)).to(dev)
+    lam = float(np.float32(qp_to_lambda(LD_QP, False)))
+    pen = torch.from_numpy(make_mv_penalty(R, np.sqrt(lam)).reshape(-1)) \
+        .to(dev)
+    return cur, ref_pad, pen, torch.from_numpy(mf.mv_bits_table(R)).to(dev)
+
+
+def k8_pen(torch, dev):
+    """Phase 4's K8 penalty [49] at QP27: sqrt(lambda) * 2 per fractional
+    component, as _refine_inter_leaves builds it."""
+    from uvg266_tpu_torch.control.partition import qp_to_lambda
+    lam = float(np.float32(qp_to_lambda(LD_QP, False)))
+    return torch.from_numpy(np.array(
+        [np.sqrt(lam) * ((0.0 if k % 7 == 3 else 2.0)
+                         + (0.0 if k // 7 == 3 else 2.0))
+         for k in range(49)], dtype=np.float32)).to(dev)
+
+
+def k8_leaves(k7_32=None, w=W, h=H):
+    """Phase 4's K8 leaves (x, y, size, mvx, mvy) by size: the frame's
+    16x16 and 64x64 blocks at seeded random full-pel MVs, its 32x32 blocks
+    at K7's 32x32 MVs (k7_32 = (grid, idx)) or at random ones."""
+    rng = np.random.default_rng(3)
+    nn = 2 * R + 1
+
+    def random_mv():
+        return tuple(int(v) for v in rng.integers(-8, 9, 2))
+    out = {16: [(x, y, 16, *random_mv()) for y in range(0, h, 16)
+                for x in range(0, w, 16)]}
+    if k7_32 is not None:
+        (x0, y0, sx, sy, gx, _gy), idx = k7_32
+        out[32] = [(x0 + (b % gx) * sx, y0 + (b // gx) * sy, 32,
+                    int(k) % nn - R, int(k) // nn - R)
+                   for b, k in enumerate(idx.tolist())]
+    else:
+        out[32] = [(x, y, 32, *random_mv()) for y in range(0, h - 31, 32)
+                   for x in range(0, w - 31, 32)]
+    out[64] = [(x, y, 64, *random_mv()) for y in range(0, h - 63, 64)
+               for x in range(0, w - 63, 64)]
+    return out
+
+
+def k8_tiles(torch, leaves, ref0, src1, dev):
+    """[windows [nt, 18, 18], blocks [nt, 8, 8], leaf ids [nt], n_leaves]
+    of leaves cut as _refine_inter_leaves cuts them."""
+    from uvg266_tpu_torch.ops.inter import fetch_extended_block
+    tiles, tblocks, ids = [], [], []
+    for li, (x, y, s, mvx, mvy) in enumerate(leaves):
+        win = fetch_extended_block(ref0, x + mvx, y + mvy, s, s, 5, 5, 5, 5)
+        for i in range(s // 8):
+            for j in range(s // 8):
+                tiles.append(win[8 * i:8 * i + 18, 8 * j:8 * j + 18])
+                tblocks.append(src1[y + 8 * i:y + 8 * i + 8,
+                                    x + 8 * j:x + 8 * j + 8])
+                ids.append(li)
+    return [torch.from_numpy(np.stack(a).astype(np.int32)).to(dev)
+            for a in (tiles, tblocks, ids)] + [len(leaves)]
+
+
+def k7_tile_pass(kernels, src, ref_pad, r, pen, bits_tab, ssd):
+    """K7's C entry with no class: its tile pass alone, into ssd
+    [(H/8)*(W/8), (2r+1)^2] int32."""
+    H, W = src.shape
+    kernels.launch("frame_inter", src.device, src.data_ptr(),
+                   ref_pad.data_ptr(), H, W, r, pen.data_ptr(),
+                   bits_tab.data_ptr(), None, 0, ssd.data_ptr(), None, None,
+                   None, None)
+
+
+def k8_tile_pass(kernels, wins, blks, ids, pen, bd, satd):
+    """K8's C entry with no leaf: its tile pass alone, into satd [nt, 49]
+    int32."""
+    kernels.launch("leaf_qpel", wins.device, wins.data_ptr(), blks.data_ptr(),
+                   ids.data_ptr(), wins.shape[0], 0, pen.data_ptr(), bd,
+                   satd.data_ptr(), None, None, None)
+
+
+def k7_library(torch, src, ref_pad, r):
+    """K7's tile pass as the reference formulates it (me_frame.py
+    tile_ssd_maps), as a PyTorch chain in float32 with TF32 off: a grouped
+    conv2d of the tiles' (8+2r)^2 windows with the source tiles (corr), a
+    conv2d of the squared windows with an 8x8 ones kernel (r^2), b^2, and
+    b^2 - 2 corr + r^2. Returns the chain (-> [T, 2r+1, 2r+1] float32);
+    the windows are cut once, outside it."""
+    F = torch.nn.functional
+    H, W = src.shape
+    side, T = 8 + 2 * r, (H // 8) * (W // 8)
+    win = ref_pad.float().unfold(0, side, 8).unfold(1, side, 8) \
+        .reshape(T, side, side).contiguous()
+    tiles = src.float().reshape(H // 8, 8, W // 8, 8).permute(0, 2, 1, 3) \
+        .reshape(T, 1, 8, 8).contiguous()
+    ones = torch.ones((1, 1, 8, 8), device=src.device)
+
+    def chain():
+        corr = F.conv2d(win[None], tiles, groups=T)[0]
+        r2 = F.conv2d((win * win)[:, None], ones)[:, 0]
+        b2 = (tiles * tiles).sum(dim=(-2, -1))
+        return b2[..., None] - 2.0 * corr + r2
+    return chain
 
 
 def dct_ops(n: int) -> int:
@@ -590,8 +729,6 @@ def main() -> int:
     from uvg266_tpu_torch.ops import transforms as tr
     from uvg266_tpu_torch.ops.tr_matrices import (DCT2, DCT8, DST7,
                                                   device_matrix)
-    from uvg266_tpu_torch.ops.inter import fetch_extended_block
-    from uvg266_tpu_torch.ops.me import make_mv_penalty
     from uvg266_tpu_torch.ops.tables import (device_mts_tables, device_tables,
                                              frame_tables, me_penalties,
                                              mip_matrix, mip_mode_bits,
@@ -844,23 +981,40 @@ def main() -> int:
     iclasses = inter_classes(dprobe, dentries)
     print("phase 4 inter classes: " + ", ".join(
         f"{w}x{h} B={g[4] * g[5]}" for (w, h, g) in iclasses), flush=True)
-    cur = torch.from_numpy(frames[1][0]).to(dev)
-    ref_np = np.pad(frames[0][0], R, mode="edge").astype(np.int32)
-    ref_pad = torch.from_numpy(ref_np).to(dev)
+    cur, ref_pad, pen, bits_tab = k7_inputs(torch, frames, dev)
     lam_i = float(np.float32(qp_to_lambda(LD_QP, False)))
-    pen = torch.from_numpy(make_mv_penalty(R, np.sqrt(lam_i)).reshape(-1)) \
-        .to(dev)
-    bits_tab = torch.from_numpy(mf.mv_bits_table(R)).to(dev)
     found = mf.frame_inter(cur, ref_pad, pen, bits_tab, iclasses, R)
     want = mf.frame_inter_plain(cur, ref_pad, pen, bits_tab, iclasses, R)
     for (w, h, _g), got_c, want_c in zip(iclasses, found, want):
         for o, a, b in zip(("idx", "pred", "blk", "extra"), got_c, want_c):
             same("frame_inter", f"{w}x{h} {o}", a, b)
-    timed("frame_inter",
-          lambda: mf.frame_inter(cur, ref_pad, pen, bits_tab, iclasses, R),
-          lambda: mf.frame_inter_plain(cur, ref_pad, pen, bits_tab, iclasses,
-                                       R), f"{W}x{H} 1 ref",
-          B=0, w=8, h=8, H_=H, W_=W, classes=iclasses)
+    # the tile pass alone (the C entry with no class) against the plain
+    # tile SSD maps, and the reference's own formulation (a chain of
+    # convolutions: the row's library time) against the kernel's map
+    nn = 2 * R + 1
+    ssd = torch.empty(((H // 8) * (W // 8), nn * nn), dtype=torch.int32,
+                      device=dev)
+    k7_tile_pass(kernels, cur, ref_pad, R, pen, bits_tab, ssd)
+    same("frame_inter", "tile SSD maps", ssd,
+         mf._tile_ssd_plain(cur, ref_pad, R))
+    chain = k7_library(torch, cur, ref_pad, R)
+    lib_d = (chain().double().reshape(ssd.shape) - ssd.double()).abs().max()
+    library_ms["frame_inter"] = time_ms(torch, chain, 20)
+    _k, k7_dev, _b = timed(
+        "frame_inter",
+        lambda: mf.frame_inter(cur, ref_pad, pen, bits_tab, iclasses, R),
+        lambda: mf.frame_inter_plain(cur, ref_pad, pen, bits_tab, iclasses,
+                                     R), f"{W}x{H} 1 ref",
+        B=0, w=8, h=8, H_=H, W_=W, classes=iclasses)
+    tile_dev = graph_ms(torch, lambda: k7_tile_pass(
+        kernels, cur, ref_pad, R, pen, bits_tab, ssd), 20)
+    print(f"  frame_inter by pass (device, graph): tile {tile_dev:.4f} ms, "
+          f"class {k7_dev - tile_dev:.4f} ms (earlier design: whole "
+          f"{K78_BEFORE_MS[('frame_inter', 'whole')]:.4f}, tile "
+          f"{K78_BEFORE_MS[('frame_inter', 'tile')]:.4f}); library chain "
+          f"{library_ms['frame_inter']:.4f} ms (events), largest |chain - "
+          f"tile map| {lib_d.item():.1f}", flush=True)
+    del ssd, chain
     ft = frame_tables(LD_QP, "cuda")
     for (w, h, g), (_idx, pred, blk, extra) in zip(iclasses, found):
         tabs = device_tables(w, h, 8, "cuda")
@@ -878,47 +1032,10 @@ def main() -> int:
     # the 32x32 leaves at K7's 32x32 MVs, the others at seeded random
     # full-pel MVs; then the 64x64 set at the largest residual at 10 bits
     # (block = 1023 - window)
-    rng = np.random.default_rng(3)
-    ref0 = frames[0][0]
-    src1 = frames[1][0]
-
-    def leaf_set(leaves):
-        tiles, tblocks, ids = [], [], []
-        for li, (x, y, s, mvx, mvy) in enumerate(leaves):
-            win = fetch_extended_block(ref0, x + mvx, y + mvy, s, s,
-                                       5, 5, 5, 5)
-            for i in range(s // 8):
-                for j in range(s // 8):
-                    tiles.append(win[8 * i:8 * i + 18, 8 * j:8 * j + 18])
-                    tblocks.append(src1[y + 8 * i:y + 8 * i + 8,
-                                        x + 8 * j:x + 8 * j + 8])
-                    ids.append(li)
-        return [torch.from_numpy(np.stack(a).astype(np.int32)).to(dev)
-                for a in (tiles, tblocks, ids)] + [len(leaves)]
-
-    def random_mv():
-        return tuple(int(v) for v in rng.integers(-8, 9, 2))
-
-    leaves16 = [(x, y, 16, *random_mv()) for y in range(0, H, 16)
-                for x in range(0, W, 16)]
-    nn = 2 * R + 1
     k7 = {(w, h): (g, idx) for (w, h, g), (idx, *_r) in zip(iclasses, found)}
-    if (32, 32) in k7:
-        g, idx = k7[(32, 32)]
-        xs, ys = ib._grid_xy(g, "cpu")
-        leaves32 = [(int(x), int(y), 32, int(k) % nn - R, int(k) // nn - R)
-                    for x, y, k in zip(xs, ys, idx.cpu())]
-    else:
-        leaves32 = [(x, y, 32, *random_mv()) for y in range(0, H - 31, 32)
-                    for x in range(0, W - 31, 32)]
-    leaves64 = [(x, y, 64, *random_mv()) for y in range(0, H - 63, 64)
-                for x in range(0, W - 63, 64)]
-    pen49 = torch.from_numpy(np.array(
-        [np.sqrt(lam_i) * ((0.0 if k % 7 == 3 else 2.0)
-                           + (0.0 if k // 7 == 3 else 2.0))
-         for k in range(49)], dtype=np.float32)).to(dev)
-    sets = {f"{s}x{s}": leaf_set(lv) for s, lv in
-            ((16, leaves16), (32, leaves32), (64, leaves64))}
+    pen49 = k8_pen(torch, dev)
+    sets = {f"{s}x{s}": k8_tiles(torch, lv, frames[0][0], frames[1][0], dev)
+            for s, lv in k8_leaves(k7.get((32, 32))).items()}
     cases = [(f"{tag} {bd}-bit", (wn * sc, bk * sc, ids, nl, pen49, bd))
              for tag, (wn, bk, ids, nl) in sets.items()
              for bd, sc in ((8, 1), (10, 4))]
@@ -931,12 +1048,29 @@ def main() -> int:
         for o, x_, y_ in zip(("best", "cost", "seg"), mf.leaf_qpel(*a),
                              mf.leaf_qpel_plain(*a)):
             same("leaf_qpel", f"{what} {o}", x_, y_)
-    wins, blks, lids, li = sets["16x16"]
-    nt = wins.shape[0]
-    timed("leaf_qpel", lambda: mf.leaf_qpel(wins, blks, lids, li, pen49, 8),
-          lambda: mf.leaf_qpel_plain(wins, blks, lids, li, pen49, 8),
-          f"{nt} tiles, {li} leaves", B=0, w=8, h=8, H_=H, W_=W, nt=nt, nl=li)
-    del found, want, sets, cases, wins, blks, lids, wins64, ids64, wmax
+        # the tile pass alone against the plain per-tile SATDs
+        satd = torch.empty((a[0].shape[0], 49), dtype=torch.int32, device=dev)
+        k8_tile_pass(kernels, a[0], a[1], a[2], pen49, a[5], satd)
+        same("leaf_qpel", f"{what} tile SATDs", satd,
+             mf._tile_satd_plain(a[0], a[1], a[5]).to(torch.int32))
+    for tag in ("16x16", "64x64"):
+        wins, blks, lids, li = sets[tag]
+        nt = wins.shape[0]
+        _k, k8_dev, _b = timed(
+            "leaf_qpel", lambda: mf.leaf_qpel(wins, blks, lids, li, pen49, 8),
+            lambda: mf.leaf_qpel_plain(wins, blks, lids, li, pen49, 8),
+            f"{tag}: {nt} tiles, {li} leaves", account=tag == "16x16",
+            B=0, w=8, h=8, H_=H, W_=W, nt=nt, nl=li)
+        satd = torch.empty((nt, 49), dtype=torch.int32, device=dev)
+        tile_dev = graph_ms(torch, lambda: k8_tile_pass(
+            kernels, wins, blks, lids, pen49, 8, satd), 20)
+        before = {p_: K78_BEFORE_MS[(f"leaf_qpel {tag}", p_)]
+                  for p_ in ("whole", "tile")}
+        print(f"  leaf_qpel {tag} by pass (device, graph): tile "
+              f"{tile_dev:.4f} ms, segment {k8_dev - tile_dev:.4f} ms "
+              f"(earlier design: whole {before['whole']:.4f}, tile "
+              f"{before['tile']:.4f})", flush=True)
+    del found, want, sets, cases, wins, blks, lids, wins64, ids64, wmax, satd
     print(f"phase 4 inter kernels: {checks - n0} comparisons, all equal",
           flush=True)
 
@@ -1462,29 +1596,61 @@ def main() -> int:
     print(busy_share(torch, lambda: encode(Encoder(lcfg, device=dev),
                                            FramePlanes, seq)), flush=True)
 
-    # --- 7. the dense inter path --------------------------------------------
-    rclip = clip[:RA_FRAMES]
-    k8_frames = [0]
     refine = SliceEncoder._refine_inter_leaves
 
-    def counted_refine(self, ctus, *a, **k):
-        # K8 launches once for a frame that has inter leaves to refine
-        if any(leaf.cu_desc.get("type") == "inter"
-               for node in ctus for leaf in node.leaves()):
-            k8_frames[0] += 1
-        return refine(self, ctus, *a, **k)
+    def counting_k8(run):
+        """run() with a count of the frames that give K8 inter leaves to
+        refine (it launches once for each) -> (run's result, count)."""
+        n = [0]
 
-    SliceEncoder._refine_inter_leaves = counted_refine
-    try:
+        def counted_refine(self, ctus, *a, **k):
+            if any(leaf.cu_desc.get("type") == "inter"
+                   for node in ctus for leaf in node.leaves()):
+                n[0] += 1
+            return refine(self, ctus, *a, **k)
+        SliceEncoder._refine_inter_leaves = counted_refine
+        try:
+            return run(), n[0]
+        finally:
+            SliceEncoder._refine_inter_leaves = refine
+
+    def timed_encode(pcfg, pclip):
         kernels.reset_launches()
         t0 = time.perf_counter()
-        denc = Encoder(dcfg, device=dev)
-        douts = encode(denc, FramePlanes, rclip)
+        penc = Encoder(pcfg, device=dev)
+        pouts = encode(penc, FramePlanes, pclip)
         torch.cuda.synchronize()
-        dwall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-    finally:
-        SliceEncoder._refine_inter_leaves = refine
+        return penc, pouts, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    # --- 6b. the low-delay path with rdoq on --------------------------------
+    qcfg = rdoq_ld_config(Config)
+    qseq = clip[:RDOQ_FRAMES]
+    encode(Encoder(qcfg, device=dev), FramePlanes, qseq[:2])    # warm-up
+    torch.cuda.synchronize()
+    (qenc, qouts, qwall, launches), k8_q = counting_k8(
+        lambda: timed_encode(qcfg, qseq))
+    native("rdoq LD", qenc)
+    if len(qouts) != RDOQ_FRAMES:
+        fail(f"rdoq LD path returned {len(qouts)} of {RDOQ_FRAMES} frames")
+    n_p = sum(1 for o in qouts if o[2].slicetype != SliceType.I)
+    if k8_q == 0:
+        fail("rdoq LD path: no inter leaf refined")
+    expect("rdoq LD", launches,
+           {**dict.fromkeys(INTRA_KERNELS, n_classes(qenc) * RDOQ_FRAMES),
+            "pseudo_recon": n_p, "leaf_qpel": k8_q})
+    print(f"phase 6b rdoq LD path: {RDOQ_FRAMES} frames {W}x{H} QP{LD_QP} "
+          f"({n_p} P/B, {k8_q} with inter leaves) in {qwall:.3f} s = "
+          f"{RDOQ_FRAMES / qwall:.3f} fps wall, "
+          f"{sum(len(o[0]) for o in qouts)} bytes, launches "
+          + json.dumps(launches), flush=True)
+    print(busy_share(torch, lambda: encode(Encoder(qcfg, device=dev),
+                                           FramePlanes, qseq), every=True),
+          flush=True)
+
+    # --- 7. the dense inter path --------------------------------------------
+    rclip = clip[:RA_FRAMES]
+    (denc, douts, dwall, launches), k8_d = counting_k8(
+        lambda: timed_encode(dcfg, rclip))
     native("dense RA", denc)
     if len(douts) != RA_FRAMES:
         fail(f"dense path returned {len(douts)} of {RA_FRAMES} frames")
@@ -1495,20 +1661,21 @@ def main() -> int:
                 rl, fs)
             n_uniq += len(denc.slice_enc._uniq_refs(
                 rl, fs.slicetype == SliceType.B)[0])
-    if n_uniq == 0 or k8_frames[0] == 0:
+    if n_uniq == 0 or k8_d == 0:
         fail("dense path: no inter frame searched or refined")
     expect("dense RA", launches,
            {**dict.fromkeys(INTRA_KERNELS, n_classes(denc) * RA_FRAMES),
             "frame_inter": n_uniq,
             "rd_cost_pred": n_uniq * len(inter_classes(
                 denc.slice_enc, denc.slice_enc._fused_entries_c)),
-            "leaf_qpel": k8_frames[0]})
+            "leaf_qpel": k8_d})
     print(f"phase 7 dense path: {RA_FRAMES} frames {W}x{H} QP{LD_QP} RA GOP8 "
           f"ime_algorithm=2 rdoq in {dwall:.3f} s = {RA_FRAMES / dwall:.3f} "
           f"fps wall, {sum(len(o[0]) for o in douts)} bytes, launches "
           + json.dumps(launches), flush=True)
     print(busy_share(torch, lambda: encode(Encoder(dcfg, device=dev),
-                                           FramePlanes, rclip)), flush=True)
+                                           FramePlanes, rclip), every=True),
+          flush=True)
 
     # --- 7b. the MIP and MTS paths ------------------------------------------
     mcfg, tcfg = mip_config(Config), mts_config(Config)
@@ -1653,6 +1820,7 @@ def main() -> int:
 
     msg = [card_vs_cpu("all-intra", cfg, outs, 1, clip[:1])]
     msg.append(card_vs_cpu("low-delay", lcfg, louts, 3, seq[:3]))
+    msg.append(card_vs_cpu("rdoq LD", qcfg, qouts, 2, qseq[:2]))
     # three frames of the dense path: the IDR, then the truncated GOP's
     # POC 2 (P) and POC 1 (B)
     dshort = encode(Encoder(dcfg, device=dev), FramePlanes, rclip[:3])
@@ -1675,6 +1843,7 @@ def main() -> int:
 
     # --- 9. small clips through the oracle decoder --------------------------
     for label, mk in (("all-intra", bench_config), ("low-delay", ld_config),
+                      ("rdoq LD", rdoq_ld_config),
                       ("dense RA", dense_config), ("MIP", mip_config),
                       ("MTS", mts_config), ("10-bit LD", ld10_config),
                       ("slow RA", slow_ra_config), ("rough", rough_config)):

@@ -50,15 +50,20 @@ def t(a):
 
 def test_constant_tables_equal_reference():
     """The 'weights' the slice adds: the luma filter (also the copy
-    compiled into csrc/common.cuh, which K8 leaf_qpel.cu and K9b
-    frac_search.cu share), the 16x16 DCT2, the quant scales, the mv penalty
-    and the mv bits table."""
+    compiled into csrc/qpel.cuh, which K8 leaf_qpel.cu and K9b
+    frac_search.cu share, and its rows 4, 8, 12 as qpel.cuh's tap table),
+    the 16x16 DCT2, the quant scales, the mv penalty and the mv bits
+    table."""
     np.testing.assert_array_equal(inter.LUMA_FILTER, ref_inter.LUMA_FILTER)
-    with open(os.path.join(CSRC, "common.cuh")) as fh:
+    with open(os.path.join(CSRC, "qpel.cuh")) as fh:
         src = fh.read()
     body = src[src.index("kLumaFilter[16][8] = {"):].split(";")[0]
     cu = np.array([int(v) for v in re.findall(r"-?\d+", body)[2:]])
     np.testing.assert_array_equal(cu.reshape(16, 8), ref_inter.LUMA_FILTER)
+    body = src[src.index("constexpr int f[3][8] = {"):].split(";")[0]
+    cu = np.array([int(v) for v in re.findall(r"-?\d+", body)[2:]])
+    np.testing.assert_array_equal(cu.reshape(3, 8),
+                                  ref_inter.LUMA_FILTER[[4, 8, 12]])
     np.testing.assert_array_equal(tr.get_matrix(tr.DCT2, 16),
                                   ref_tr.get_matrix(ref_tr.DCT2, 16))
     np.testing.assert_array_equal(quant.QUANT_SCALES, ref_quant.QUANT_SCALES)

@@ -481,3 +481,161 @@ def test_transform_quant_kernels_equal_plain(card, w, h, th, tv, bd):
             if kernels.LAUNCHES[k] != before[k]} == {
         "fwd_transform": 1, "inv_transform": 1, "quant_levels": 2 * n_qp,
         "dequant_levels": n_qp}
+
+
+def _k8_leaves(rng, bd, tag, nt_extra=0):
+    """Leaves of 1, 2, 4, 16 and 64 tiles, then three padding tiles (and
+    nt_extra random one-tile leaves before them), as
+    tests/test_torch_me_frame_design.py builds them: random windows with
+    the 64-tile leaf at the largest residual, all-max windows, or windows
+    whose rows drive each horizontal phase to its extreme sums."""
+    from uvg266_tpu_torch.ops.inter import LUMA_FILTER
+    mx = (1 << bd) - 1
+    sizes = (1, 2, 4, 16, 64) + (1,) * nt_extra
+    ids = np.repeat(np.arange(len(sizes) + 1), sizes + (3,)).astype(np.int32)
+    nt = ids.size
+    if tag == "max":
+        wins, blks = np.full((nt, 18, 18), mx), np.zeros((nt, 8, 8))
+    elif tag == "taps":
+        pats = [np.where(s * np.asarray(LUMA_FILTER[fx]) > 0, mx, 0)
+                for fx in (4, 8, 12) for s in (1, -1)]
+        wins = np.stack([np.stack([np.resize(pats[(t + i) % 6], 18)
+                                   for i in range(18)]) for t in range(nt)])
+        blks = rng.integers(0, mx + 1, (nt, 8, 8))
+    else:
+        wins = rng.integers(0, mx + 1, (nt, 18, 18))
+        blks = rng.integers(0, mx + 1, (nt, 8, 8))
+        blks[ids == 4] = mx - wins[ids == 4, 5:13, 5:13]
+    return (wins.astype(np.int32), blks.astype(np.int32), ids,
+            (rng.random(49) * 40).astype(np.float32), len(sizes))
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("tag", ["rand", "max", "taps"])
+def test_redesigned_k8_equal_plain(card, bd, tag):
+    """K8 leaf_qpel (four tiles a warp, shared int16 horizontal passes, the
+    vertical slide and the shuffle Hadamard of qpel.cuh; a warp per leaf)
+    at leaves of 1, 2, 4, 16 and 64 tiles mixed with padding ids, alone
+    and with 6000 one-tile leaves (many thread blocks, a partial last
+    warp); its tile pass alone (the C entry with no leaf) against the plain
+    per-tile SATDs; windows at a 4-byte offset (no 16-byte loads)."""
+    from uvg266_tpu_torch.ops import me_frame as mf
+    rng = np.random.default_rng(bd * 7 + len(tag))
+    n = 0
+    before = dict(kernels.LAUNCHES)
+    for extra in (0, 6000):
+        wins, blks, ids, pen, nl = _k8_leaves(rng, bd, tag, extra)
+        w_, b_, i_, p_ = (_t(a, card) for a in (wins, blks, ids, pen))
+        for a, b in zip(mf.leaf_qpel(w_, b_, i_, nl, p_, bd),
+                        mf.leaf_qpel_plain(w_, b_, i_, nl, p_, bd)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        satd = torch.empty((ids.size, 49), dtype=torch.int32, device=card)
+        kernels.launch("leaf_qpel", card, w_.data_ptr(), b_.data_ptr(),
+                       i_.data_ptr(), ids.size, 0, p_.data_ptr(), bd,
+                       satd.data_ptr(), None, None, None)
+        assert torch.equal(satd, mf._tile_satd_plain(w_, b_, bd)
+                           .to(torch.int32))
+        n += 2
+    flat = torch.empty(wins.size + 1, dtype=torch.int32, device=card)
+    w_odd = flat[1:].view(wins.shape)
+    w_odd.copy_(_t(wins, card))
+    assert w_odd.data_ptr() % 16 != 0
+    for a, b in zip(mf.leaf_qpel(w_odd, b_, i_, nl, p_, bd),
+                    mf.leaf_qpel_plain(w_odd, b_, i_, nl, p_, bd)):
+        assert torch.equal(a, b)
+    n += 1
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {"leaf_qpel": n}
+
+
+@pytest.mark.parametrize("r", [16, 5, 0, 24])
+def test_redesigned_k7_equal_plain(card, r):
+    """K7 frame_inter (4 x 3 tile patches at r = 16, one tile and strips
+    of 8 at any other r; box-sum r^2; one class launch, a warp per block)
+    on a 136x104 frame (partial patches on both axes), random, flat and
+    edge 8-bit planes and random 10- and 12-bit ones, ten classes
+    (square, rectangular, offset grids, 64x64, an empty one; more than a
+    launch's eight), the tile map alone (the C entry with no class)
+    against the plain tile SSD maps."""
+    from uvg266_tpu_torch.ops import me_frame as mf
+    rng = np.random.default_rng(r + 3)
+    H, W = 104, 136
+    n = 2 * r + 1
+    classes = ((8, 8, (0, 0, 8, 8, 17, 13)), (16, 16, (0, 0, 16, 16, 8, 6)),
+               (32, 32, (0, 0, 32, 32, 4, 3)), (64, 64, (0, 0, 64, 64, 2, 1)),
+               (16, 32, (8, 0, 32, 32, 3, 3)), (32, 16, (0, 8, 32, 32, 4, 3)),
+               (8, 16, (0, 0, 16, 16, 8, 6)), (64, 32, (8, 16, 64, 32, 1, 2)),
+               (32, 32, (0, 0, 32, 32, 0, 3)), (24, 8, (0, 0, 24, 8, 5, 13)))
+    pen = _t(np.linspace(0, 60, n * n).astype(np.float32), card)
+    bits = _t(rng.uniform(4, 30, n * n).astype(np.float32), card)
+    before = dict(kernels.LAUNCHES)
+    cnt = 0
+    for bd, tag in ((8, "rand"), (8, "flat"), (8, "edge"), (10, "rand"),
+                    (12, "rand")):
+        mx = (1 << bd) - 1
+        if tag == "flat":
+            src = np.full((H, W), mx // 3)
+            ref = src.copy()
+        elif tag == "edge":
+            src = ((np.arange(H)[:, None] // 8 + np.arange(W)[None] // 8)
+                   % 2) * mx
+            ref = np.roll(src, (3, 5), (0, 1))
+        else:
+            src = rng.integers(0, mx + 1, (H, W))
+            ref = np.clip(np.roll(src, (3, -5), (0, 1))
+                          + rng.integers(-3, 4, (H, W)), 0, mx)
+        s = _t(src.astype(np.int32), card)
+        rp = _t(np.pad(ref, r, mode="edge").astype(np.int32), card)
+        got = mf.frame_inter(s, rp, pen, bits, classes, r)
+        want = mf.frame_inter_plain(s, rp, pen, bits, classes, r)
+        for g, w_ in zip(got, want):
+            for a, b in zip(g, w_):
+                assert a.dtype == b.dtype and torch.equal(a, b), (bd, tag)
+        ssd = torch.empty(((H // 8) * (W // 8), n * n), dtype=torch.int32,
+                          device=card)
+        kernels.launch("frame_inter", card, s.data_ptr(), rp.data_ptr(), H,
+                       W, r, pen.data_ptr(), bits.data_ptr(), None, 0,
+                       ssd.data_ptr(), None, None, None, None)
+        assert torch.equal(ssd, mf._tile_ssd_plain(s, rp, r)), (bd, tag)
+        cnt += 2
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {"frame_inter": cnt}
+
+
+@pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (8, 32), (64, 64)])
+def test_k9b_after_header_move(card, w, h):
+    """K9b frac_search, whose interpolation and Hadamard now come from
+    qpel.cuh (shared with K8), on planes whose rows drive each horizontal
+    phase to its extreme sums, at 8 and 12 bits: both forms equal their
+    plain versions."""
+    from uvg266_tpu_torch.ops import me
+    from uvg266_tpu_torch.ops.inter import LUMA_FILTER
+    rng = np.random.default_rng(w * 3 + h)
+    H, W = 2 * h + 40, 3 * w + 40
+    _pen, fpen = tb.me_penalties(57.9, 16, "cuda")
+    before = dict(kernels.LAUNCHES)
+    for bd in (8, 12):
+        mx = (1 << bd) - 1
+        pats = [np.where(s * np.asarray(LUMA_FILTER[fx]) > 0, mx, 0)
+                for fx in (4, 8, 12) for s in (1, -1)]
+        ref = np.stack([np.resize(pats[i % 6], W) for i in range(H)])
+        B = 9
+        xs = rng.integers(0, W - w + 1, B).astype(np.int32)
+        ys = rng.integers(0, H - h + 1, B).astype(np.int32)
+        blocks = rng.integers(0, mx + 1, (B, h, w)).astype(np.int32)
+        mvx = rng.integers(-16, 17, B).astype(np.int32)
+        mvy = rng.integers(-16, 17, B).astype(np.int32)
+        a_ = tuple(_t(v, card) for v in (ref.astype(np.int32), blocks, xs, ys,
+                                         mvx, mvy)) + (fpen, bd)
+        want = me.frac_search_plain(*a_)
+        for a, b in zip(me.frac_search(*a_), want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        wb, wp, wc = me.frac_search(*a_, winner_only=True)
+        assert torch.equal(wb, want[0]) and torch.equal(wc, want[2])
+        assert torch.equal(wp, want[1][torch.arange(B, device=card),
+                                       want[0].long()])
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {"frac_search": 4}

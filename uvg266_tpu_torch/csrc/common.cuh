@@ -209,50 +209,6 @@ __device__ __forceinline__ int angular_sample(const int* r, const AngTables& t,
   return v;
 }
 
-// --- the quarter-pel luma interpolation of K8 (leaf_qpel.cu) and K9b
-// (frac_search.cu) -------------------------------------------------------
-// uvg_g_luma_filter (ops/inter.py LUMA_FILTER), 1/16-pel phases
-static __constant__ int kLumaFilter[16][8] = {
-    {0, 0, 0, 64, 0, 0, 0, 0},        {0, 1, -3, 63, 4, -2, 1, 0},
-    {-1, 2, -5, 62, 8, -3, 1, 0},     {-1, 3, -8, 60, 13, -4, 1, 0},
-    {-1, 4, -10, 58, 17, -5, 1, 0},   {-1, 4, -11, 52, 26, -8, 3, -1},
-    {-1, 3, -9, 47, 31, -10, 4, -1},  {-1, 4, -11, 45, 34, -10, 4, -1},
-    {-1, 4, -11, 40, 40, -11, 4, -1}, {-1, 4, -10, 34, 45, -11, 4, -1},
-    {-1, 4, -10, 31, 47, -9, 3, -1},  {-1, 3, -8, 26, 52, -11, 4, -1},
-    {0, 1, -5, 17, 58, -10, 4, -1},   {0, 1, -4, 13, 60, -8, 3, -1},
-    {0, 1, -3, 8, 62, -5, 2, -1},     {0, 1, -2, 4, 63, -3, 1, 0}};
-
-// One predicted sample at phase (fx, fy) of ops/me.py make_frac_search_fn's
-// interp_one: p points at the sample's integer position in an edge-extended
-// window of row stride `stride` with 3 samples of margin before and 4 after
-// in both directions. The window itself at phase (0, 0); else 8 horizontal
-// taps on each of 8 rows (>> (bd - 8) above 8 bits), 8 vertical taps, >> 6,
-// weighted-prediction rounding by 14 - bd, clip.
-template <typename T>
-__device__ __forceinline__ int qpel_sample(const T* p, int stride, int fx,
-                                           int fy, int bitdepth) {
-  if (fx == 0 && fy == 0) return p[0];
-  const int wp_shift = 14 - bitdepth;
-  int out = 0;
-#pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    const T* row = p + (v - 3) * stride - 3;
-    int hor = 0;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) hor += kLumaFilter[fx][u] * row[u];
-    if (bitdepth > 8) hor >>= bitdepth - 8;
-    out += kLumaFilter[fy][v] * hor;
-  }
-  out >>= 6;
-  out = (out + (1 << (wp_shift - 1))) >> wp_shift;
-  return clampi(out, 0, (1 << bitdepth) - 1);
-}
-
-// Sylvester Hadamard sign H[a][b] (the matrix of make_satd67_fn / satd_bw)
-__device__ __forceinline__ int had_sign(int a, int b) {
-  return (__popc(a & b) & 1) ? -1 : 1;
-}
-
 }  // namespace uvg
 
 #define UVG_ERROR_ENTRY(name)                                     \

@@ -33,52 +33,27 @@
 // four loads in flight a thread. The 49 offsets share three
 // fractional x phases (4, 8, 12) over w + 1 columns (ix in {-1, 0}) and the
 // h + 8 rows: those three horizontal passes are computed once into shared
-// memory as int16 (their bound is checked below); at fx = 0 the reference's
-// filter 0 gives 64 * s exactly, so the window is read shifted instead. A
-// thread owns one column of n samples of one sub-block and walks the
-// offsets: it loads the n + 7 horizontal values of its column once and
+// memory as int16 (their bound is checked in qpel.cuh); at fx = 0 the
+// reference's filter 0 gives 64 * s exactly, so the window is read shifted
+// instead. A thread owns one column of n samples of one sub-block and walks
+// the offsets: it loads the n + 7 horizontal values of its column once and
 // slides the vertical 8 taps over them in registers (the identity at
 // fy = 0), keeps its n source samples in registers, runs the vertical
 // Hadamard in registers and the horizontal one across the n lanes of the
-// sub-block with warp shuffles, and sums per sub-block and per block as
+// sub-block with warp shuffles (that arithmetic in qpel.cuh, shared with
+// K8 leaf_qpel.cu), and sums per sub-block and per block as
 // integers with shuffles (order-free, no atomics). The costs, the first
 // minimum and both output forms come from the same launch; predictions
 // leave through a per-warp staging buffer as 16-byte stores.
 
 #include "common.cuh"
+#include "qpel.cuh"
 
 namespace {
 
 constexpr int NOFF = 49;
 constexpr int MARGIN = 4;        // 3 taps before the sample, and ix or iy -1
 constexpr unsigned FULL = 0xffffffffu;
-
-// the taps of the three fractional phases 4, 8, 12 (common.cuh kLumaFilter
-// rows 4, 8, 12), for the shared horizontal passes, indexed by constants
-__host__ __device__ constexpr int tap(int p, int t) {
-  constexpr int f[3][8] = {{-1, 4, -10, 58, 17, -5, 1, 0},
-                           {-1, 4, -11, 40, 40, -11, 4, -1},
-                           {0, 1, -5, 17, 58, -10, 4, -1}};
-  return f[p][t];
-}
-
-// the horizontal passes stored as int16: for every phase and bit depth the
-// extreme sums (all positive taps at the maximum sample, or all negative
-// ones), shifted by bitdepth - 8, stay inside int16
-constexpr bool hor_fits_int16() {
-  for (int bd = 8; bd <= 12; ++bd) {
-    const int mx = (1 << bd) - 1;
-    for (int p = 0; p < 3; ++p) {
-      int pos = 0, neg = 0;
-      for (int t = 0; t < 8; ++t) (tap(p, t) > 0 ? pos : neg) += tap(p, t);
-      if ((pos * mx) >> (bd - 8) > 32767 || (neg * mx) >> (bd - 8) < -32768)
-        return false;
-    }
-    if (mx << (14 - bd) > 32767) return false;    // fx = 0: 64 * s >> (bd-8)
-  }
-  return true;
-}
-static_assert(hor_fits_int16(), "K9b's horizontal passes must fit int16");
 
 struct Geo {
   int w, h, T, NB, G, nparts, ww, wh, hxw, nwarps;
@@ -135,63 +110,6 @@ __device__ __forceinline__ void load_windows(const int* __restrict__ ref,
       const int q = q0 + u * blockDim.x;
       if (q < total) win[q] = static_cast<int16_t>(v[u]);
     }
-  }
-}
-
-// The n predicted samples of column c, rows r0 .. r0+n-1, at offset k.
-// win: the block's window, origin (-MARGIN, -MARGIN), row stride ww; hx:
-// its three horizontal passes [3][wh][w + 1], column j holding column
-// j - 1 of the block.
-template <int N>
-__device__ __forceinline__ void interp_col(const int16_t* win,
-                                           const int16_t* hx, const Geo& g,
-                                           int r0, int c, int k, int bd,
-                                           int* pred) {
-  const int ox = 4 * (k % 7 - 3), oy = 4 * (k / 7 - 3);
-  const int ix = ox >> 4, iy = oy >> 4, fx = ox & 15, fy = oy & 15;
-  const int wp = 14 - bd, rnd = 1 << (wp - 1), mx = (1 << bd) - 1;
-  if (fx == 0 && fy == 0) {
-#pragma unroll
-    for (int e = 0; e < N; ++e)
-      pred[e] = win[(r0 + e + MARGIN) * g.ww + c + MARGIN];
-    return;
-  }
-  // the column of horizontal values: phase fx at column c + ix, or the
-  // window << (14 - bd) at fx = 0 (64 * s >> (bd - 8), exact)
-  const int16_t* col;
-  int stride, lsh;
-  if (fx == 0) {
-    col = win + c + MARGIN;
-    stride = g.ww;
-    lsh = 14 - bd;
-  } else {
-    col = hx + ((fx >> 2) - 1) * g.wh * g.hxw + c + ix + 1;
-    stride = g.hxw;
-    lsh = 0;
-  }
-  if (fy == 0) {            // the vertical pass is the identity (64x >> 6)
-#pragma unroll
-    for (int e = 0; e < N; ++e) {
-      const int v = col[(r0 + e + MARGIN) * stride];
-      pred[e] = uvg::clampi((v + rnd) >> wp, 0, mx);
-    }
-    return;
-  }
-  // sample row r reads window rows r + iy + 1 .. r + iy + 8
-  const int16_t* p0 = col + (r0 + iy + 1) * stride;
-  int v[N + 7];
-#pragma unroll
-  for (int t = 0; t < N + 7; ++t) v[t] = static_cast<int>(p0[t * stride]) << lsh;
-  int f[8];
-#pragma unroll
-  for (int t = 0; t < 8; ++t) f[t] = uvg::kLumaFilter[fy][t];
-#pragma unroll
-  for (int e = 0; e < N; ++e) {
-    int acc = 0;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) acc += f[t] * v[e + t];
-    acc >>= 6;
-    pred[e] = uvg::clampi((acc + rnd) >> wp, 0, mx);
   }
 }
 
@@ -268,52 +186,28 @@ frac_search_kernel(const int* __restrict__ ref, int H, int W,
 #pragma unroll
         for (int t = 0; t < 8; ++t) v[t] = wb[i * g.ww + j + t];
 #pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          int acc = 0;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) acc += tap(p, t) * v[t];
-          hb[(p * g.wh + i) * g.hxw + j] = static_cast<int16_t>(acc >> (bd - 8));
-        }
+        for (int p = 0; p < 3; ++p)
+          hb[(p * g.wh + i) * g.hxw + j] = uvg::hor_tap(v, p, bd);
       }
     }
   }
   __syncthreads();
 
-  const int16_t* wb = win_s + bi * g.wh * g.ww;
-  const int16_t* hb = hx_s + bi * 3 * g.wh * g.hxw;
+  // the block's window and passes at its sample (0, 0)
+  const int16_t* wb = win_s + bi * g.wh * g.ww + MARGIN * g.ww + MARGIN;
+  const int16_t* hb = hx_s + bi * 3 * g.wh * g.hxw + MARGIN * g.hxw + 1;
+  const int hps = g.wh * g.hxw;
   int* stage_w = stage + warp * N * 32;
   const int red_top = g.T < 32 ? g.T : 32;
-  const int add = N == 8 ? 2 : 1, shift = N == 8 ? 2 : 1;
   for (int k = grp; k < NOFF; k += g.G) {
     int pred[N], d[N];
-    interp_col<N>(wb, hb, g, r0, c, k, bd, pred);
+    uvg::interp_col<N>(wb, g.ww, hb, g.hxw, hps, r0, c, k, bd, pred);
 #pragma unroll
     for (int e = 0; e < N; ++e) d[e] = src[e] - pred[e];
-    // vertical Hadamard in registers, horizontal across the sub-block's
-    // lanes (Sylvester order, both)
-#pragma unroll
-    for (int m = 1; m < N; m <<= 1)
-#pragma unroll
-      for (int e = 0; e < N; ++e)
-        if (!(e & m)) {
-          const int a = d[e], q = d[e + m];
-          d[e] = a + q;
-          d[e + m] = a - q;
-        }
-#pragma unroll
-    for (int m = 1; m < N; m <<= 1)
-#pragma unroll
-      for (int e = 0; e < N; ++e) {
-        const int o = __shfl_xor_sync(FULL, d[e], m);
-        d[e] = (lane & m) ? o - d[e] : d[e] + o;
-      }
-    int s = 0;
-#pragma unroll
-    for (int e = 0; e < N; ++e) s += abs(d[e]);
-    if (cc == 0) s = s - abs(d[0]) + (abs(d[0]) >> 2);
-#pragma unroll
-    for (int m = 1; m < N; m <<= 1) s += __shfl_xor_sync(FULL, s, m);
-    int v = cc == 0 ? (s + add) >> shift : 0;
+    // the sub-block's SATD (lane & (N - 1) == task & (N - 1) == cc: T and
+    // NB * T are multiples of N)
+    const int sb = uvg::satd_cols<N>(d, lane);
+    int v = cc == 0 ? sb : 0;
     for (int m = N; m < red_top; m <<= 1) v += __shfl_xor_sync(FULL, v, m);
     if ((task & 31) == 0) part[(bi * NOFF + k) * g.nparts + (task >> 5)] = v;
     if (!winner) {
@@ -361,7 +255,8 @@ frac_search_kernel(const int* __restrict__ ref, int H, int W,
   // the winner form: the winning offset's prediction, recomputed
   if (grp == 0) {
     int pred[N];
-    interp_col<N>(wb, hb, g, r0, c, best_s[bi], bd, pred);
+    uvg::interp_col<N>(wb, g.ww, hb, g.hxw, hps, r0, c, best_s[bi], bd,
+                       pred);
     int* dst = valid ? preds + (static_cast<long long>(b) * h + r0) * w + c : nullptr;
     store_warp<N>(pred, stage_w, lane, dst, w);
   }

@@ -16,6 +16,10 @@ kernels for tensors on the card:
 - K8 ``leaf_qpel`` (csrc/leaf_qpel.cu; reference: make_leaf_qpel_fn): the
   49 quarter-pel offsets of every decided leaf, 8-tap interpolation, 8x8
   Hadamard SATD per tile, float32 segment sums per leaf, penalty, argmin.
+
+``tile_ssd_sep``, ``frame_inter_sep`` and ``leaf_qpel_sep`` redo the two
+kernels' arithmetic in their own order (tests/test_torch_me_frame_design.py
+holds them to the plain versions); no encode path calls them.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 
 from .. import kernels
 from .inter import LUMA_FILTER
-from .me import mv_bits_est
+from .me import mv_bits_est, satd_butterfly
 from .intra_batch import _fwht, _grid_xy
 from .transforms import _PLAIN_CHUNK
 
@@ -68,11 +72,16 @@ def frame_inter_plain(src: torch.Tensor, ref_pad: torch.Tensor, pen,
     multiple of 8 -> per class (idx [B] int32 offset index, pred [B, h, w]
     int32 at that offset, blk [B, h, w] int32 source, extra [B] float32 =
     bits_tab[idx])."""
-    H, W = src.shape
-    TX = W // TILE
+    return _class_pass_plain(src, ref_pad, _tile_ssd_plain(src, ref_pad, r),
+                             pen, bits_tab, classes, r)
+
+
+def _class_pass_plain(src, ref_pad, ssd, pen, bits_tab, classes, r: int):
+    """K7's class pass, plain, on the tile SSD maps ssd [T, (2r+1)^2]."""
+    TX = src.shape[1] // TILE
     n = 2 * r + 1
     dev = src.device
-    ssd = _tile_ssd_plain(src, ref_pad, r).to(torch.float32)
+    ssd = ssd.to(torch.float32)
     out = []
     for (w, h, grid) in classes:
         xs, ys = _grid_xy(grid, dev)
@@ -99,6 +108,79 @@ def frame_inter_plain(src: torch.Tensor, ref_pad: torch.Tensor, pen,
         out.append((idx.to(torch.int32), pred, src[rows, cols],
                     bits_tab[idx]))
     return out
+
+
+_U32 = (1 << 32) - 1
+
+
+def _as_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values taken modulo 2^32 as int32 (a uint32 result's bits)."""
+    v = v & _U32
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _k7_geometry(r: int):
+    """(PX, PY, NS) of csrc/frame_inter.cu's tile pass: a 4 x 3 patch with
+    all 33 offsets of a row a thread at r = 16, else one tile and strips
+    of 8."""
+    return (4, 3, 2 * r + 1) if r == 16 else (1, 1, 8)
+
+
+def tile_ssd_sep(src: torch.Tensor, ref_pad: torch.Tensor, r: int):
+    """K7's tile pass as csrc/frame_inter.cu computes it, in plain PyTorch:
+    per patch of PX x PY tiles one window of ref_pad (zero past the plane
+    and past its width, for the strips that run over it), r^2 as column
+    sums then row sums of 8 squared window samples, b^2 per tile, corr per
+    (tile, dy, strip of NS dx), the SSD b^2 + r^2 - 2 corr; every sum in
+    uint32 (int64 taken modulo 2^32). Equal to _tile_ssd_plain."""
+    PX, PY, NS = _k7_geometry(r)
+    H, W = src.shape
+    TY, TX = H // TILE, W // TILE
+    n = 2 * r + 1
+    strips = -(-n // NS)
+    ww, wh = TILE * PX + 2 * r, TILE * PY + 2 * r
+    wcols = ww + (NS if n % NS else 0)
+    bw, bh = ww - TILE + 1, wh - TILE + 1
+    ref, s = ref_pad.long(), src.long()
+    Hp, Wp = ref.shape
+    out = torch.empty((TY * TX, n * n), dtype=torch.int32, device=src.device)
+    for ty0 in range(0, TY, PY):
+        for tx0 in range(0, TX, PX):
+            win = torch.zeros((wh, wcols), dtype=torch.int64,
+                              device=src.device)
+            y1 = min(Hp, TILE * ty0 + wh)
+            x1 = min(Wp, TILE * tx0 + ww)
+            win[:y1 - TILE * ty0, :x1 - TILE * tx0] = \
+                ref[TILE * ty0:y1, TILE * tx0:x1]
+            sq = win[:, :ww] * win[:, :ww]
+            cs = sum(sq[i:i + bh] for i in range(TILE)) & _U32
+            box = sum(cs[:, j:j + bw] for j in range(TILE)) & _U32
+            for py in range(min(PY, TY - ty0)):
+                for px in range(min(PX, TX - tx0)):
+                    ty, tx = ty0 + py, tx0 + px
+                    st = s[TILE * ty:TILE * ty + TILE,
+                           TILE * tx:TILE * tx + TILE]
+                    b2 = int((st * st).sum()) & _U32
+                    # rows TILE py + a + i, columns TILE px + b + j for
+                    # every a and every b of the strips
+                    part = win[TILE * py:TILE * py + n + TILE - 1,
+                               TILE * px:TILE * px + strips * NS + TILE - 1]
+                    corr = (part.unfold(0, TILE, 1).unfold(1, TILE, 1)
+                            * st).sum(dim=(-2, -1))[:, :n] & _U32
+                    bx = box[TILE * py:TILE * py + n, TILE * px:TILE * px + n]
+                    out[ty * TX + tx] = _as_int32(b2 + bx - 2 * corr) \
+                        .reshape(-1)
+    return out
+
+
+def frame_inter_sep(src: torch.Tensor, ref_pad: torch.Tensor, pen,
+                    bits_tab, classes, r: int = 16):
+    """K7 with the tile maps of tile_ssd_sep and the plain class pass (the
+    float32 tile sums in raster order, + pen, the first minimum, which the
+    kernel's lanes keep in ascending order and reduce as (cost, index)
+    pairs, and the gathers). Equal to frame_inter_plain."""
+    return _class_pass_plain(src, ref_pad, tile_ssd_sep(src, ref_pad, r),
+                             pen, bits_tab, classes, r)
 
 
 def frame_inter(src: torch.Tensor, ref_pad: torch.Tensor, pen, bits_tab,
@@ -203,24 +285,30 @@ def _interp(win: torch.Tensor, k: int, bitdepth: int) -> torch.Tensor:
     return out.clamp(0, (1 << bitdepth) - 1)
 
 
-def leaf_qpel_plain(windows: torch.Tensor, blocks: torch.Tensor,
-                    leaf_ids: torch.Tensor, n_leaves: int, pen,
-                    bitdepth: int = 8):
-    """K8, plain version. windows [nt, 18, 18], blocks [nt, 8, 8] int32,
-    leaf_ids [nt] int32 sorted (ids >= n_leaves are padding), pen [49]
-    float32 -> (best [n_leaves] int32, cost [n_leaves] float32, seg
-    [n_leaves, 49] float32)."""
-    dev = windows.device
-    nt = windows.shape[0]
+def _tile_satd_plain(windows: torch.Tensor, blocks: torch.Tensor,
+                     bitdepth: int) -> torch.Tensor:
+    """K8's tile pass, plain: windows [nt, 18, 18], blocks [nt, 8, 8] ->
+    [nt, 49] int64, each tile's 8x8 Hadamard SATD at every offset."""
     win = windows.long()
     blk = blocks.long()
-    satd = torch.empty((nt, 49), dtype=torch.int64, device=dev)
+    satd = torch.empty((windows.shape[0], 49), dtype=torch.int64,
+                       device=windows.device)
     for k in range(49):
         d = blk - _interp(win, k, bitdepth)
         t = _fwht(_fwht(d, -1), -2).abs()          # H d H, H the 8x8 Hadamard
         s = t.sum(dim=(-2, -1))
         dc = t[:, 0, 0]
         satd[:, k] = (s - dc + (dc >> 2) + 2) >> 2
+    return satd
+
+
+def _leaf_seg(satd: torch.Tensor, leaf_ids: torch.Tensor, n_leaves: int,
+              pen):
+    """K8's segment pass, plain: the float32 sums of each leaf's tile SATDs
+    [nt, 49] in tile order, + pen, the first minimum -> (best, cost,
+    seg)."""
+    dev = satd.device
+    nt = satd.shape[0]
     satd = satd.to(torch.float32)
     # segment sums in tile order: the j-th tile of every leaf at step j
     ids = leaf_ids.long()
@@ -231,6 +319,83 @@ def leaf_qpel_plain(windows: torch.Tensor, blocks: torch.Tensor,
     for j in range(int(rank.max().item()) + 1 if nt else 0):
         sel = keep & (rank == j)
         seg[ids[sel]] = seg[ids[sel]] + satd[sel]
+    costs = seg + pen[None]
+    best = torch.argmin(costs, dim=1)
+    return best.to(torch.int32), costs.gather(1, best[:, None])[:, 0], seg
+
+
+def leaf_qpel_plain(windows: torch.Tensor, blocks: torch.Tensor,
+                    leaf_ids: torch.Tensor, n_leaves: int, pen,
+                    bitdepth: int = 8):
+    """K8, plain version. windows [nt, 18, 18], blocks [nt, 8, 8] int32,
+    leaf_ids [nt] int32 sorted (ids >= n_leaves are padding), pen [49]
+    float32 -> (best [n_leaves] int32, cost [n_leaves] float32, seg
+    [n_leaves, 49] float32)."""
+    return _leaf_seg(_tile_satd_plain(windows, blocks, bitdepth), leaf_ids,
+                     n_leaves, pen)
+
+
+def leaf_qpel_sep(windows: torch.Tensor, blocks: torch.Tensor,
+                  leaf_ids: torch.Tensor, n_leaves: int, pen,
+                  bitdepth: int = 8):
+    """K8 as csrc/leaf_qpel.cu computes it, in plain PyTorch: per tile the
+    three horizontal passes at fx = 4, 8, 12 over window rows 1..16 and
+    tile columns -1..7, >> (bitdepth - 8), kept as int16 (a pass that left
+    int16 raises); per x offset the 16 values of each column (the pass at
+    column c + ix, or the window << (14 - bitdepth) at fx = 0), the
+    vertical 8 taps slid over them for the 7 y offsets (the identity at
+    fy = 0, the window itself at k = 24); the butterfly Hadamard SATD
+    (ops.me.satd_butterfly); per leaf the float32 sums of its tiles in
+    tile order from its first tile (binary search), + pen, the first
+    minimum. Equal to leaf_qpel_plain."""
+    win = windows.long()
+    nt = win.shape[0]
+    hx = []
+    for fx in (4, 8, 12):
+        f = LUMA_FILTER[fx]
+        acc = sum(int(f[t]) * win[:, 1:17, 1 + t:10 + t] for t in range(8))
+        acc = acc >> (bitdepth - 8)
+        h16 = acc.to(torch.int16)
+        if not torch.equal(h16.long(), acc):
+            raise OverflowError("leaf_qpel_sep: a horizontal pass left int16")
+        hx.append(h16.long())                       # [nt, 16, 9]
+    wp = 14 - bitdepth
+    mx = (1 << bitdepth) - 1
+    satd = torch.empty((nt, 49), dtype=torch.int64, device=win.device)
+    blk = blocks.long()
+    for xo in range(7):
+        ox = 4 * (xo - 3)
+        ix, fx = ox >> 4, ox & 15
+        col = (win[:, 1:17, PAD:PAD + TILE] << wp) if fx == 0 \
+            else hx[(fx >> 2) - 1][:, :, ix + 1:ix + 1 + TILE]  # [nt, 16, 8]
+        for yo in range(7):
+            oy = 4 * (yo - 3)
+            iy, fy = oy >> 4, oy & 15
+            if fx == 0 and fy == 0:
+                pred = win[:, PAD:PAD + TILE, PAD:PAD + TILE]
+            else:
+                if fy == 0:
+                    out = col[:, 4:4 + TILE]
+                else:
+                    f = LUMA_FILTER[fy]
+                    out = sum(int(f[t]) * col[:, 1 + iy + t:1 + iy + t + TILE]
+                              for t in range(8)) >> 6
+                pred = ((out + (1 << (wp - 1))) >> wp).clamp(0, mx)
+            satd[:, yo * 7 + xo] = satd_butterfly(blk - pred)
+    # the segment pass: a leaf's tiles from its first, in tile order
+    ids = leaf_ids.long()
+    first = torch.searchsorted(ids, torch.arange(n_leaves, device=ids.device))
+    seg = torch.zeros((n_leaves, 49), dtype=torch.float32, device=win.device)
+    sf = satd.to(torch.float32)
+    q = first.clone()
+    while True:
+        on = (q < nt) & (ids[q.clamp(max=max(nt - 1, 0))] ==
+                         torch.arange(n_leaves, device=ids.device)) \
+            if nt else torch.zeros(n_leaves, dtype=torch.bool)
+        if not bool(on.any()):
+            break
+        seg[on] = seg[on] + sf[q[on]]
+        q = q + on.long()
     costs = seg + pen[None]
     best = torch.argmin(costs, dim=1)
     return best.to(torch.int32), costs.gather(1, best[:, None])[:, 0], seg
