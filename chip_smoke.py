@@ -17,17 +17,22 @@ Phases, one line each (or a few), any failure exits non-zero:
      BT/TT shapes 32x8, 8x32, 64x16, 16x64, 4x16 and 16x4 (K2 over all 67
      modes and the 35 of the rough search, K4 over 67, 35, 16 and 12
      candidates, on the class grid, on one block and on 37 blocks, and at
-     the largest residual). Times from CUDA events over 20 calls (and,
-     for K1-K4 and K9a-K11, over 20 calls captured in a CUDA graph and
-     replayed: their device time without the host's launch path; also K7
-     and K8 in phase 4), launches
+     the largest residual), and K1 and K12a at the BT/TT shapes and
+     where the 3w+3 top line leaves the plane (grids leaving it, origins
+     off the 4-sample grid, two frames with a separate reference plane).
+     Times from CUDA events over 20 calls (and, for K1-K4, K6 and
+     K9a-K12a, over 20 calls captured in a CUDA graph and replayed: their
+     device time without the host's launch path; also K7 and K8 in phase
+     4), launches
      per frame and the least time the card could take (bytes over 3.35
      TB/s or operations over 67 T/s);
   4. the same for the inter kernels at 832x480: K5 pseudo_recon (frame,
      random and edge planes, 8 and 10 bits, three QPs), K7 frame_inter (one
      reference, every inter class of the dense search; its tile pass alone
      against the plain tile SSD maps), K6 rd_cost_pred on K7's
-     predictions, K8 leaf_qpel (the frame's 16x16, 32x32 and 64x64 blocks
+     predictions and at every (w, h) in {4..64}^2 (8 and 10 bits, quant
+     rounding 85 and 171, the frame's blocks and the all-max residual,
+     one, 37 and every block), K8 leaf_qpel (the frame's 16x16, 32x32 and 64x64 blocks
      as leaves of 4, 16 and 64 tiles, and the 64x64 leaves at the largest
      10-bit residual; its tile pass alone against the plain per-tile
      SATDs): all outputs equal, tolerance 0. K7 and K8 are split by pass on
@@ -42,8 +47,9 @@ Phases, one line each (or a few), any failure exits non-zero:
      the class's 12 or 16 MIP candidates, K11 mts_search (classes up to
      32x32) on K4's winning prediction and on the largest residual, and
      K10 and K11 (up to 32x32) at the BT/TT shapes too: all outputs equal,
-     tolerance 0. K10 and K11 are also timed per class on a CUDA graph of
-     20 calls (K10 through its C entry), beside their earlier designs';
+     tolerance 0. K10, K11 and K12a are also timed per class on a CUDA
+     graph of 20 calls (K10 and K12a through their C entries), beside
+     their earlier designs' (K6 and K1 too);
   4c. the kernels of the per-class inter search and of the rough search at
      832x480 (frame, flat and edge planes, 8 and 10 bits): K9a
      fullpel_search and both forms of K9b frac_search (all 49 predictions;
@@ -163,10 +169,11 @@ REPLACES = {
 }
 INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
 # the kernels timed on a CUDA graph too (their wrappers only allocate their
-# outputs and launch; K10's C entry is graphed, since its wrapper copies the
-# positions from the host)
+# outputs and launch; K10's and K12a's C entries are graphed, since their
+# wrappers copy the positions from the host)
 GRAPH_KERNELS = INTRA_KERNELS + ("fullpel_search", "frac_search", "mip_preds",
-                                 "mts_search", "frame_inter", "leaf_qpel")
+                                 "mts_search", "frame_inter", "leaf_qpel",
+                                 "rd_cost_pred", "refs_blocks")
 TR_KERNELS = ("fwd_transform", "inv_transform", "quant_levels",
               "dequant_levels")
 TR_QPS = (0, 22, 27, 37)      # qp_scaled of phase 4d, and the largest
@@ -176,7 +183,8 @@ LATTICE_SHAPES = ((32, 8), (8, 32), (64, 16), (16, 64), (4, 16), (16, 4))
 # 832x480 frame on an NVIDIA H100 80GB HBM3 at 700.00 W: K2 (per-sample
 # tables) and K4 (full matrix products) by CUDA events; K10 (a thread block
 # per block, runtime divisions) and K11 (the five pairs one after another
-# through full matrix products) on a CUDA graph (tools/k10_k11_times.py)
+# through full matrix products) on a CUDA graph (tools/k10_k11_times.py);
+# K6, K1 and K12a as noted below
 EARLIER_MS = {("predict67", 64): 0.1222, ("predict67", 32): 0.1266,
               ("predict67", 16): 0.1241, ("predict67", 8): 0.1336,
               ("rd_cost", 64): 0.1355, ("rd_cost", 32): 0.0367,
@@ -184,7 +192,19 @@ EARLIER_MS = {("predict67", 64): 0.1222, ("predict67", 32): 0.1266,
               ("mip_preds", 64): 0.0714, ("mip_preds", 32): 0.0430,
               ("mip_preds", 16): 0.0478, ("mip_preds", 8): 0.0718,
               ("mts_search", 32): 0.1347, ("mts_search", 16): 0.0627,
-              ("mts_search", 8): 0.1234}
+              ("mts_search", 8): 0.1234,
+              # K6 (256 threads a block, a full matrix product per output)
+              # per dense reference; K1 and K12a (a thread per output
+              # sample, K12a through its C entry) per frame: on a CUDA graph
+              # (tools/k6_k1_times.py on the tree before their redesign)
+              ("rd_cost_pred", 32): 0.0285, ("rd_cost_pred", 16): 0.0138,
+              ("rd_cost_pred", 8): 0.0192,
+              ("refs_blocks_grid", 64): 0.0052,
+              ("refs_blocks_grid", 32): 0.0070,
+              ("refs_blocks_grid", 16): 0.0133,
+              ("refs_blocks_grid", 8): 0.0362,
+              ("refs_blocks", 64): 0.0044, ("refs_blocks", 32): 0.0059,
+              ("refs_blocks", 16): 0.0107, ("refs_blocks", 8): 0.0277}
 # K9a and K9b before their redesign (a thread per offset; a thread block
 # per block and offset), ms per reference at 10 bits (16x16 + 8x8), CUDA
 # events, this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md)
@@ -919,6 +939,9 @@ def main() -> int:
             for tag, src in class_planes(bd).items():
                 what = f"{w}x{h} {bd}-bit {tag}"
                 refs, blocks = ib.refs_blocks_grid(src, w, h, g)
+                pr_, pb = ib.refs_blocks_grid_plain(src, w, h, g)
+                same("refs_blocks_grid", what + " refs", refs, pr_)
+                same("refs_blocks_grid", what + " blocks", blocks, pb)
                 for mtag, ml in (("M=67", None), ("M=35", m35)):
                     preds = ib.predict67(refs, tabs, ml)
                     same("predict67", f"{what} {mtag}", preds,
@@ -947,6 +970,35 @@ def main() -> int:
                                 same("rd_cost", f"{what}{ptag} M={M_} "
                                      f"B={nb} {o}", a, b)
                 del refs, blocks, preds, pairs
+    # K1 and K12a where the 3w+3 top line and the 3h+3 left line leave the
+    # plane: a K1 grid whose blocks leave it at the right and bottom edges
+    # (clamped), off the 4-sample grid, two frames with a separate
+    # reference plane; K12a at the corners, next to the right edge and off
+    # the 4-sample grid; every class and BT/TT shape, 8 and 10 bits
+    pseudo2 = torch.stack([pseudo0, frame_src])
+    for (w, h) in [(c[0], c[1]) for c in classes] + list(LATTICE_SHAPES):
+        xs = np.array([0, W - w, 0, W - w, W - w - 1,
+                       max(0, W - 3 * w - 1), 5], dtype=np.int32)
+        ys = np.array([0, 0, H - h, H - h, 3, H - h - 1, H - 2 * h],
+                      dtype=np.int32)
+        grids = ((W - 2 * w - 1, H - h - 2, w, h, 3, 2),
+                 (max(2, W - 3 * w + 2), 1, 2 * w, h, 2, 3))
+        for bd in (8, 10):
+            for tag, src in class_planes(bd).items():
+                what = f"{w}x{h} {bd}-bit {tag} edge"
+                for o, a, b in zip(("refs", "blocks"),
+                                   ib.refs_blocks(src, xs, ys, w, h),
+                                   ib.refs_blocks_plain(src, xs, ys, w, h)):
+                    same("refs_blocks", f"{what} {o}", a, b)
+                src2 = torch.stack([src, src.flip(1).contiguous()])
+                for g in grids:
+                    for o, a, b in zip(
+                            ("refs", "blocks"),
+                            ib.refs_blocks_grid(src2, w, h, g, pseudo2),
+                            ib.refs_blocks_grid_plain(src2, w, h, g,
+                                                      pseudo2)):
+                        same("refs_blocks_grid", f"{what} {g} F=2 {o}", a, b)
+    del pseudo2, src2
     print(f"phase 3 intra kernels: {checks} comparisons, all equal",
           flush=True)
 
@@ -1027,6 +1079,38 @@ def main() -> int:
         timed("rd_cost_pred", lambda: rc.rd_cost_pred(*a),
               lambda: rc.rd_cost_pred_plain(*a), f"{w}x{h}",
               B=g[4] * g[5], w=w, h=h, H_=H, W_=W)
+    # K6 at every (w, h) in {4..64}^2: frame 0's w x h blocks against
+    # frame 1's co-located blocks as the prediction, and the all-max
+    # residual (zero prediction); 8 and 10 bits, quant rounding 85 and 171
+    # (the rough intra search's); every block, one and 37 blocks
+    def cut(plane, w, h):
+        """The w x h blocks of a plane, cropped to whole blocks."""
+        p_ = torch.from_numpy(plane[:H // h * h, :W // w * w]).to(dev)
+        return p_.reshape(H // h, h, W // w, w).transpose(1, 2) \
+            .reshape(-1, h, w).contiguous()
+    for w in (4, 8, 16, 32, 64):
+        for h in (4, 8, 16, 32, 64):
+            blk8, prd8 = cut(frames[0][0], w, h), cut(frames[1][0], w, h)
+            B = blk8.shape[0]
+            extra = torch.rand(B, generator=gen, device=dev) * 9
+            for bd in (8, 10):
+                mx, sc = (1 << bd) - 1, 1 << (bd - 8)
+                tabs = device_tables(w, h, bd, "cuda")
+                pairs = {"frame": (prd8 * sc, blk8 * sc),
+                         "max": (torch.zeros_like(blk8),
+                                 torch.full_like(blk8, mx))}
+                for tag, (pp, bb) in pairs.items():
+                    for intra in (False, True):
+                        for nb in (B, 1, 37):
+                            a = (pp[:nb], bb[:nb], LD_QP + 6 * (bd - 8),
+                                 lam_i, ft["wts"], extra[:nb], tabs, bd,
+                                 intra)
+                            same("rd_cost_pred",
+                                 f"{w}x{h} {bd}-bit {tag} rounding "
+                                 f"{171 if intra else 85} B={nb}",
+                                 rc.rd_cost_pred(*a),
+                                 rc.rd_cost_pred_plain(*a))
+            del blk8, prd8, pairs, pp, bb
     # K8: leaves of frame 1 against frame 0 in three sets, 16x16, 32x32
     # and 64x64 (4, 16 and 64 tiles a leaf, segment sums in tile order):
     # the 32x32 leaves at K7's 32x32 MVs, the others at seeded random
@@ -1135,10 +1219,21 @@ def main() -> int:
         ft = frame_tables(QP, "cuda")
         lam = float(np.float32(qp_to_lambda(QP)))
         shape = dict(B=B, w=w, h=h, H_=H, W_=W)
+        xd, yd = ib.positions_on(xs, ys, w, h, H, W, dev)
+        k12a_out = [torch.empty((B, 780), dtype=torch.int32, device=dev),
+                    torch.empty((B, h, w), dtype=torch.int32, device=dev)]
+
+        def k12a_entry():
+            kernels.launch("refs_blocks", dev, frame_src.data_ptr(), H, W,
+                           xd.data_ptr(), yd.data_ptr(), B, w, h,
+                           k12a_out[0].data_ptr(), k12a_out[1].data_ptr())
         timed("refs_blocks", lambda: ib.refs_blocks(frame_src, xs, ys, w, h),
               lambda: ib.refs_blocks_plain(frame_src, xs, ys, w, h),
-              f"{w}x{h}", **shape)
-        xd, yd = ib.positions_on(xs, ys, w, h, H, W, dev)
+              f"{w}x{h}", graph=k12a_entry, **shape)
+        for o, a, b in zip(("refs", "blocks"), k12a_out,
+                           ib.refs_blocks_plain(frame_src, xs, ys, w, h)):
+            same("refs_blocks", f"{w}x{h} C entry {o}", a, b)
+        del k12a_out
         k10_out = torch.empty((B, n_cand, h, w), dtype=torch.int32,
                               device=dev)
 
@@ -1190,9 +1285,12 @@ def main() -> int:
                 same("mip_preds", what,
                      mp.mip_preds(src, xs, ys, w, h, bd, mat),
                      mp.mip_preds_plain(src, xs, ys, w, h, bd, mat))
+                refs, blocks = ib.refs_blocks(src, xs, ys, w, h)
+                for o, a, b in zip(("refs", "blocks"), (refs, blocks),
+                                   ib.refs_blocks_plain(src, xs, ys, w, h)):
+                    same("refs_blocks", f"{what} {o}", a, b)
                 if mts is None:
                     continue
-                refs, blocks = ib.refs_blocks(src, xs, ys, w, h)
                 preds = ib.predict67(refs, tabs)
                 ft = frame_tables(22, "cuda")
                 lam = float(np.float32(qp_to_lambda(22)))
@@ -1219,6 +1317,11 @@ def main() -> int:
     print("  K10/K11 per frame (device, graph, ms): " + ", ".join(
         f"{n} {dev_ms[n]:.4f} (earlier design {v:.4f})"
         for n, v in earlier.items()), flush=True)
+    earlier = {n: sum(v for k, v in EARLIER_MS.items() if k[0] == n)
+               for n in ("rd_cost_pred", "refs_blocks_grid", "refs_blocks")}
+    print("  K6 per dense reference, K1 and K12a per frame (device, graph, "
+          "ms): " + ", ".join(f"{n} {dev_ms[n]:.4f} (earlier design {v:.4f})"
+                              for n, v in earlier.items()), flush=True)
     print(f"phase 4b tool kernels: {checks - n0} comparisons, all equal",
           flush=True)
 

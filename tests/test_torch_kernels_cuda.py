@@ -639,3 +639,82 @@ def test_k9b_after_header_move(card, w, h):
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before
             if kernels.LAUNCHES[k] != before[k]} == {"frac_search": 4}
+
+
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("h", [4, 8, 16, 32, 64])
+def test_redesigned_k6_k1_equal_plain(card, w, h):
+    """K6 rd_cost_pred (K4's RD tail from rd_tail.cuh, w*h/4 threads a
+    block) and the K1/K12a reference-line kernel (templates over (w, h), U
+    blocks a thread block, lines in shared memory, int4 rows) at every
+    (w, h) in {4..64}^2. K6 at 8 and 10 bits, QP 22 and 37, quant rounding
+    85 and 171, on random, all-max and (10 bits) 12-bit-range residuals
+    that wrap the SSD, B = 1, 37 and 70 (not multiples of the blocks per
+    thread block). K1 on planes narrower than its 3w+3 top line, with the
+    row length a multiple of 4 and not: the plane's grid with edge blocks
+    leaving it, a grid off the 4-sample grid, one block, F = 2 frames with
+    a separate reference plane; K12a at the corners and off the 4-sample
+    grid. Every output equal, one launch per comparison; the K6 wrapper
+    refuses a prediction that is not 16-byte aligned."""
+    rng = np.random.default_rng(w * 100 + h + 11)
+    n = {"rd_cost_pred": 0, "refs_blocks_grid": 0, "refs_blocks": 0}
+    before = dict(kernels.LAUNCHES)
+    for bd in (8, 10):
+        mx = (1 << bd) - 1
+        tabs = tb.device_tables(w, h, bd, "cuda")
+        for B in (1, 37, 70):
+            src = rng.integers(0, mx + 1, (B, h, w))
+            cases = [(rng.integers(0, mx + 1, (B, h, w)), src),
+                     (np.zeros((B, h, w)), np.full((B, h, w), mx))]
+            if bd == 10:
+                cases.append((np.zeros((B, h, w)), np.full((B, h, w), 4095)))
+            extra = _t(rng.random(B).astype(np.float32) * 9, card)
+            for pred, blk in cases:
+                pred = _t(pred.astype(np.int32), card)
+                blk = _t(blk.astype(np.int32), card)
+                for qp in (22, 37):
+                    ft = tb.frame_tables(qp, "cuda")
+                    for intra in (False, True):
+                        a = (pred, blk, qp + 6 * (bd - 8), 57.9, ft["wts"],
+                             extra, tabs, bd, intra)
+                        got = rd.rd_cost_pred(*a)
+                        want = rd.rd_cost_pred_plain(*a)
+                        assert got.dtype == want.dtype and torch.equal(got,
+                                                                       want)
+                        n["rd_cost_pred"] += 1
+        # the reference-line kernel: planes narrower than the top line
+        for W in (2 * w + 8, 2 * w + 7, 9 * w + 4):
+            H = 2 * h + 3
+            planes = _t(rng.integers(0, mx + 1, (2, H, W)).astype(np.int32),
+                        card)
+            other = _t(rng.integers(0, mx + 1, (2, H, W)).astype(np.int32),
+                       card)
+            grids = [(0, 0, w, h, -(-W // w), -(-H // h)),
+                     (w // 2 + 1, 1, 2 * w, h, max(1, (W - w) // (2 * w)), 2),
+                     (W - w, H - h, w, h, 1, 1)]
+            for g in grids:
+                for s, rs in ((planes[0], None), (planes, other)):
+                    got = ib.refs_blocks_grid(s, w, h, g, rs)
+                    want = ib.refs_blocks_grid_plain(s, w, h, g, rs)
+                    for x_, y_ in zip(got, want):
+                        assert x_.dtype == y_.dtype and torch.equal(x_, y_)
+                    n["refs_blocks_grid"] += 1
+            xs = np.array([0, W - w, 0, W - w, 1, 3, w + 2, W - w - 1, 5],
+                          dtype=np.int32)
+            ys = np.array([0, 0, H - h, H - h, 2, h + 1, 1, H - h - 1, 0],
+                          dtype=np.int32)
+            for sel in (slice(None), slice(5, 6)):
+                got = ib.refs_blocks(planes[1], xs[sel], ys[sel], w, h)
+                want = ib.refs_blocks_plain(planes[1], xs[sel], ys[sel], w, h)
+                for x_, y_ in zip(got, want):
+                    assert x_.dtype == y_.dtype and torch.equal(x_, y_)
+                n["refs_blocks"] += 1
+    flat = torch.zeros(4 * h * w + 1, dtype=torch.int32, device=card)
+    blk = torch.zeros((4, h, w), dtype=torch.int32, device=card)
+    ft = tb.frame_tables(22, "cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rd.rd_cost_pred(flat[1:].view(4, h, w), blk, 22, 57.9, ft["wts"],
+                        torch.zeros(4, device=card), tabs, 10)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == n

@@ -1,4 +1,4 @@
-// The even/odd partial butterflies of K4 (rd_cost.cu) and K11
+// The even/odd partial butterflies of K4 and K6 (rd_tail.cuh) and K11
 // (mts_search.cu): 1-D DCT2 passes over lines in shared memory. VVC's DCT2
 // matrices satisfy M[k][n-1-x] = (-1)^k M[k][x]: a forward pass sums
 // (v[x] +- v[n-1-x]) * M[k][x] over half the points, an inverse pass forms

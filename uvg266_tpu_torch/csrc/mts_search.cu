@@ -4,9 +4,9 @@
 // Replaces: uvg266_tpu/ops/rd_cost.py:230 make_mts_search_fn. Per block and
 // candidate ci (tr_idx 0, 2, 3, 4, 5 = DCT2/DCT2, DST7/DST7, DCT8/DST7,
 // DST7/DCT8, DCT8/DCT8; horizontal/vertical):
-//   bits, ssd = the RD tail (the steps of common.cuh rd_tail_block) with the
-//               pair's matrices and its zero-out (a 32-point DST7 or DCT8
-//               keeps 16 coefficients)
+//   bits, ssd = the RD tail (the steps of rd_tail.cuh) with the pair's
+//               matrices and its zero-out (a 32-point DST7 or DCT8 keeps 16
+//               coefficients)
 //   cost[ci]  = float(ssd) + lam * (bits + sig)   sig = 1 (ci = 0), 1 + ci
 //   dc[ci]    = no nonzero level beyond the DC position
 //   cost[ci] += 1e30 where dc[ci] and ci > 0     (cannot signal mts_idx)

@@ -4,8 +4,7 @@
 // which is K3). Per block, over its M candidate predictions (the 67 intra
 // modes, or the MIP candidates of a class):
 //   best = argmin_m float(satd[m]) + sqrt(lam) * mode_bits[m]  (first minimum)
-//   bits, ssd = the RD tail of preds[best] (the steps of common.cuh
-//               rd_tail_block, DCT2 both ways)
+//   bits, ssd = the RD tail of preds[best] (rd_tail.cuh, DCT2 both ways)
 //   rd   = float(ssd) + lam * (bits + mode_bits[best])
 // Integer steps wrap like the reference's int32 (its int64 casts are int32
 // with x64 off): the products that can overflow (level, dequant, SSD) are
@@ -17,65 +16,32 @@
 //
 // Bound on this card: bytes (the satds, the winning prediction and the
 // source block read once), with the operations of the four transform passes
-// as partial butterflies close behind. Design: templates over (w, h), so
-// every index is a constant expression; w*h/4 threads per block (1024 at
-// 64x64, so the 91-block class runs 91 full thread blocks instead of 91
-// quarter-filled ones) and 256 / (w*h/4) blocks per thread block below
-// 32x32 (16 at 8x8), all in lockstep between the five barriers. Each 1-D
-// pass is an even/odd partial butterfly (butterfly.cuh; VVC's DCT2
-// matrices satisfy M[k][n-1-x] = (-1)^k M[k][x]): a forward pass sums
-// (v[x] +- v[n-1-x]) * M[k][x] over half the points, an inverse pass forms
-// the even and the odd half sums once and writes outputs x and n-1-x from
-// them, so each pass does half the multiply-adds of the matrix product.
-// The sums never leave int32 (|residual| < 2^10, coefficients within +-91,
-// at most 64 terms, int16 inputs to the second and later passes), so
-// reassociating them is exact.
-// Each thread computes two outputs on each of two lines per pass; the
-// matrix pairs (M[2j][x], M[2j+1][x]) sit in shared memory in both the
-// forward (x-major) and the inverse (j-major) order, so a warp reads them
-// at consecutive addresses, and the planes have a padded row stride. The
-// argmin runs in each block's first warp (or its own lanes below 32
-// threads) with a (cost, index) lexicographic shuffle reduction; bucket
-// counts and the SSD are reduced with shared-memory integer atomics, which
-// are exact in any order.
+// as partial butterflies close behind. Design: the RD tail of rd_tail.cuh,
+// which K6 (rd_cost_pred.cu) shares: templates over (w, h), so every index
+// is a constant expression; w*h/4 threads per block (1024 at 64x64, so the
+// 91-block class runs 91 full thread blocks instead of 91 quarter-filled
+// ones) and 256 / (w*h/4) blocks per thread block below 32x32 (16 at 8x8),
+// all in lockstep between the barriers; each 1-D pass an even/odd partial
+// butterfly (butterfly.cuh), half the multiply-adds of the matrix product.
+// Before the tail, the argmin runs in each block's first warp (or its own
+// lanes below 32 threads) with a (cost, index) lexicographic shuffle
+// reduction.
 
-#include "butterfly.cuh"
-#include "common.cuh"
+#include "rd_tail.cuh"
 
 namespace {
 
 template <int W, int H>
-struct Geo {
-  static constexpr int HW = W * H;
-  static constexpr int T = HW / 4;                   // threads per block
-  static constexpr int U = T >= 256 ? 1 : 256 / T;   // blocks per thread block
-  static constexpr int NT = T * U;
-  static constexpr int SW = W + 1;                   // padded row stride
-  static constexpr int PLANE = H * SW;
-  static constexpr int CW = (W / 2) * (W / 2);       // int2 pairs per order
-  static constexpr int CH = (H / 2) * (H / 2);
-  static constexpr bool SQ = W == H;
-  // shared memory: forward and inverse pairs of Mw (and of Mh unless
-  // square), then two planes per block
-  static constexpr size_t SMEM = (2 * CW + (SQ ? 0 : 2 * CH)) * sizeof(int2) +
-                                 static_cast<size_t>(U) * 2 * PLANE * sizeof(int);
-};
-
-template <int W, int H>
-__global__ void __launch_bounds__(Geo<W, H>::NT)
+__global__ void __launch_bounds__(uvg::RdGeo<W, H>::NT)
     rd_cost_kernel(const int* __restrict__ preds, const int* __restrict__ src,
                    const int* __restrict__ satds, const int8_t* __restrict__ mat_w,
                    const int8_t* __restrict__ mat_h, const float* __restrict__ wts,
                    const float* __restrict__ mode_bits, uvg::RdTail p, int B, int M,
                    float lam, int* __restrict__ best_out, float* __restrict__ rd_out,
                    int* __restrict__ satd_out) {
-  using G = Geo<W, H>;
+  using G = uvg::RdGeo<W, H>;
   extern __shared__ int4 smem4[];
-  int2* fw = reinterpret_cast<int2*>(smem4);
-  int2* iw = fw + G::CW;
-  int2* fh = G::SQ ? fw : iw + G::CW;
-  int2* ih = G::SQ ? iw : fh + G::CH;
-  int* planes = reinterpret_cast<int*>(G::SQ ? iw + G::CW : ih + G::CH);
+  const uvg::RdShared<W, H> sh(smem4);
   __shared__ int best_s[G::U];
   __shared__ int cnt[G::U][4];
   __shared__ unsigned ssd_s[G::U];
@@ -84,11 +50,8 @@ __global__ void __launch_bounds__(Geo<W, H>::NT)
   const int u = tid / G::T, lt = tid % G::T;
   const int cu = blockIdx.x * G::U + u;
   const bool valid = cu < B;
-  int* A = planes + u * 2 * G::PLANE;       // [H][SW]
-  int* Bf = A + G::PLANE;                   // [H][SW]
 
-  uvg::load_pairs<W>(mat_w, fw, iw, tid, G::NT);
-  if (!G::SQ) uvg::load_pairs<H>(mat_h, fh, ih, tid, G::NT);
+  sh.load(mat_w, mat_h, tid);
 
   // first minimum of satd + sqrt(lam) * mode_bits over the M candidates
   {
@@ -121,63 +84,7 @@ __global__ void __launch_bounds__(Geo<W, H>::NT)
   const int best = best_s[u];
   const int* pred = preds + (static_cast<long long>(valid ? cu : 0) * M + best) * G::HW;
   const int* sb = src + static_cast<long long>(valid ? cu : 0) * G::HW;
-
-  // residual: four adjacent samples per thread
-  {
-    const int y = (lt * 4) / W, x = (lt * 4) % W;
-    int4 s4 = make_int4(0, 0, 0, 0), p4 = s4;
-    if (valid) {
-      s4 = *reinterpret_cast<const int4*>(sb + lt * 4);
-      p4 = *reinterpret_cast<const int4*>(pred + lt * 4);
-    }
-    int* a = A + y * G::SW + x;
-    a[0] = s4.x - p4.x;
-    a[1] = s4.y - p4.y;
-    a[2] = s4.z - p4.z;
-    a[3] = s4.w - p4.w;
-  }
-  __syncthreads();
-  // forward, rows: Bf[y][k] = int16((sum_x A[y][x] * Mw[k][x] + rnd) >> s1)
-  uvg::fwd_pass<W, H, 1, G::SW>(A, fw, lt, [&](int y, int k, int acc) {
-    Bf[y * G::SW + k] = uvg::wrap16((acc + (1 << (p.s1 - 1))) >> p.s1);
-  });
-  __syncthreads();
-  // forward, columns, then quant, bucket counts and dequant in place:
-  // A[k2][x] = dequant(quant(int16((sum_y Mh[k2][y] * Bf[y][x] + rnd) >> s2)))
-  int c0 = 0, c1 = 0, c2 = 0, c3 = 0;       // bucket counts, in registers
-  uvg::fwd_pass<H, W, G::SW, 1>(Bf, fh, lt, [&](int x, int k2, int acc) {
-    const int c = uvg::wrap16((acc + (1 << (p.s2 - 1))) >> p.s2);
-    int level = uvg::wrap_mul_add(abs(c), p.scale, p.add) >> p.q_bits;
-    level = uvg::clampi(level, 0, 32767);
-    c0 += level == 0;
-    c1 += level == 1;
-    c2 += level == 2;
-    c3 += level >= 3;
-    const int sgn = (c > 0) - (c < 0);
-    A[k2 * G::SW + x] = uvg::clip16(
-        uvg::wrap_mul_add(sgn * level, p.iscale, 1 << (p.dq_shift - 1)) >> p.dq_shift);
-  });
-  if (c0) atomicAdd(&cnt[u][0], c0);
-  if (c1) atomicAdd(&cnt[u][1], c1);
-  if (c2) atomicAdd(&cnt[u][2], c2);
-  if (c3) atomicAdd(&cnt[u][3], c3);
-  __syncthreads();
-  // inverse, columns: Bf[y][x] = clip16((sum_k2 Mh[k2][y] * A[k2][x] + rnd) >> si1)
-  uvg::inv_pass<H, W, G::SW, 1>(A, ih, lt, [&](int x, int y, int acc) {
-    Bf[y * G::SW + x] = uvg::clip16((acc + (1 << (p.si1 - 1))) >> p.si1);
-  });
-  __syncthreads();
-  // inverse, rows, reconstruction and SSD
-  unsigned ssd = 0u;
-  uvg::inv_pass<W, H, 1, G::SW>(Bf, iw, lt, [&](int y, int x, int acc) {
-    const int r = uvg::clip16((acc + (1 << (p.si2 - 1))) >> p.si2);
-    const int i = y * W + x;
-    const int pv = valid ? pred[i] : 0;
-    const int d = (valid ? sb[i] : 0) - uvg::clampi(pv + r, 0, p.max_pix);
-    ssd += static_cast<unsigned>(d) * static_cast<unsigned>(d);
-  });
-  atomicAdd(&ssd_s[u], ssd);
-  __syncthreads();
+  uvg::rd_tail<W, H>(sh, pred, sb, valid, p, u, lt, cnt[u], &ssd_s[u]);
   if (lt == 0 && valid) {
     const float bits = uvg::bucket_bits(cnt[u], wts);
     const float ssd_f = __int2float_rn(static_cast<int>(ssd_s[u]));
@@ -192,7 +99,7 @@ int launch(const void* preds, const void* src, const void* satds, int B, int M,
            const void* mat_w, const void* mat_h, const void* wts,
            const void* mode_bits, const uvg::RdTail& p, float lam, void* best,
            void* rd, void* satd_best, cudaStream_t stream) {
-  using G = Geo<W, H>;
+  using G = uvg::RdGeo<W, H>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       rd_cost_kernel<W, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(G::SMEM));

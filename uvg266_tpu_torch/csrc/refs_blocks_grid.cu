@@ -20,101 +20,200 @@
 // refs [F*B, 4*REF_LEN] = [top | left | ftop | fleft] and blocks
 // [F*B, h, w] = src[clamp(y + r), clamp(x + c)].
 //
-// Bound on this card: bytes. It reads the plane (L2-resident, 1.6 MB at
-// 832x480) and writes 3.1 KB of references plus h*w*4 bytes per block; a
-// handful of integer operations per output. Design: one thread per output
-// sample (grid-stride), clamped coordinates in place of a padded copy of
-// the plane, so neighbouring threads write neighbouring addresses and no
-// intermediate tensor reaches device memory. One launch covers every frame
-// of a batch and both outputs.
-
-#include <algorithm>
+// Bound on this card: bytes. It writes 3120 B of references and h*w*4
+// bytes of block per block (at 8x8 the references are 92% of the output)
+// and reads the plane (L2-resident, 1.6 MB at 832x480); a few integer
+// operations per output. Design: templates over (w, h) for the 25 shapes
+// in {4, 8, 16, 32, 64}^2, so every division and modulus is by a constant;
+// a thread block of 256 threads holds U blocks (about 1536 int4 of output:
+// 7 blocks at 8x8, one at 64x64), in four steps between three barriers,
+// each a constant number of unrolled iterations a thread:
+// 1. U threads take the blocks' origins (from (x0, y0, sx, sy, gx), or one
+//    read of xs and ys) and frame offsets into shared memory;
+// 2. the Lt + Ll samples of each block's unfiltered top and left lines are
+//    loaded into shared memory once (a few loads a thread; the 780-int
+//    row repeats most of them: at 8x8 Lt = 27 of 195), while the block's
+//    h rows are copied
+//    with one int4 load and store per four samples where the row lies in
+//    the plane at x % 4 == 0 (w % 4 == 0 always; W % 4 == 0 and a 16-byte
+//    aligned plane checked by the entry), with four clamped scalar loads
+//    elsewhere (edge blocks); every load is issued before the first
+//    store, so a thread waits for the cache once, not once a load;
+// 3. the 780-int row [top | left | ftop | fleft] of each block is formed
+//    in shared memory from the lines, position i of all four sections by
+//    one thread (two or six reads of the lines for four outputs);
+// 4. the rows are written with int4 stores (3120-byte rows: 16-byte
+//    aligned), so consecutive threads write consecutive 16 bytes.
+// One launch covers every frame of a batch and both outputs.
 
 #include "common.cuh"
 
 namespace {
 
-struct Grid {
-  int H, W, w, h, x0, y0, sx, sy, gx, B, Lt, Ll;
+constexpr int NT = 256;                  // threads a thread block
+constexpr int RQ = uvg::NREF / 4;        // int4 of a reference row (195)
+
+template <int W, int H>
+struct RGeo {
+  static constexpr int LT = 3 * W + 3 < uvg::REF_LEN ? 3 * W + 3 : uvg::REF_LEN;
+  static constexpr int LL = 3 * H + 3 < uvg::REF_LEN ? 3 * H + 3 : uvg::REF_LEN;
+  static constexpr int LINES = LT + LL;
+  static constexpr int WQ = W / 4;       // int4 of a block row
+  static constexpr int BQ = H * WQ;      // int4 of a block
+  static constexpr int U = RQ + BQ >= 1536 ? 1 : 1536 / (RQ + BQ);
 };
 
-__device__ __forceinline__ int psample(const int* __restrict__ s, const Grid& g,
-                                       int r, int c) {
-  return s[uvg::clampi(r - 1, 0, g.H - 1) * g.W + uvg::clampi(c - 1, 0, g.W - 1)];
-}
+// where the blocks lie: at (xs[b], ys[b]), or on the grid when xs is null
+struct Pos {
+  const int* xs;
+  const int* ys;
+  int x0, y0, sx, sy, gx, B;
+};
 
-__device__ __forceinline__ int top_at(const int* __restrict__ s, const Grid& g,
-                                      int x, int y, int i) {
-  return psample(s, g, y, x + min(i, g.Lt - 1));
-}
+template <int W, int H>
+__global__ void __launch_bounds__(NT)
+    refs_blocks_kernel(const int* __restrict__ src, const int* __restrict__ refsrc,
+                       Pos pos, int Hp, int Wp, int n, bool vec,
+                       int* __restrict__ refs, int* __restrict__ blocks) {
+  using G = RGeo<W, H>;
+  // each thread's share of a step, a constant: the loops unroll, and every
+  // load of step 2 is issued before its first store
+  constexpr int KL = (G::U * G::LINES + NT - 1) / NT;
+  constexpr int KB = (G::U * G::BQ + NT - 1) / NT;
+  constexpr int KI = (G::U * uvg::REF_LEN + NT - 1) / NT;
+  constexpr int KR = (G::U * RQ + NT - 1) / NT;
+  __shared__ int ox[G::U], oy[G::U];
+  __shared__ long long base[G::U];              // the frame's plane offset
+  __shared__ int lines[G::U][G::LINES];         // top (LT), then left (LL)
+  __shared__ __align__(16) int row[G::U][uvg::NREF];
+  const int tid = threadIdx.x;
+  const int fb0 = blockIdx.x * G::U;
+  const int nu = min(G::U, n - fb0);
 
-__device__ __forceinline__ int left_at(const int* __restrict__ s, const Grid& g,
-                                       int x, int y, int i) {
-  return psample(s, g, y + min(i, g.Ll - 1), x);
-}
+  // 1. the origins
+  if (tid < nu) {
+    const int fb = fb0 + tid;
+    const int f = fb / pos.B, b = fb - f * pos.B;
+    ox[tid] = pos.xs ? pos.xs[b] : pos.x0 + (b % pos.gx) * pos.sx;
+    oy[tid] = pos.ys ? pos.ys[b] : pos.y0 + (b / pos.gx) * pos.sy;
+    base[tid] = static_cast<long long>(f) * Hp * Wp;
+  }
+  __syncthreads();
 
-// xs, ys: the block origins [B], or null for those of the grid
-__global__ void refs_blocks_grid_kernel(const int* __restrict__ src,
-                                        const int* __restrict__ refsrc,
-                                        const int* __restrict__ xs,
-                                        const int* __restrict__ ys, Grid g,
-                                        int F, int* __restrict__ refs,
-                                        int* __restrict__ blocks) {
-  const int n_refs = F * g.B * uvg::NREF;
-  const int hw = g.h * g.w;
-  const int n_all = n_refs + F * g.B * hw;
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n_all;
-       idx += gridDim.x * blockDim.x) {
-    if (idx < n_refs) {
-      const int j = idx % uvg::NREF;
-      const int fb = idx / uvg::NREF;
-      const int b = fb % g.B;
-      const int* s = refsrc + static_cast<long long>(fb / g.B) * g.H * g.W;
-      const int x = xs ? xs[b] : g.x0 + (b % g.gx) * g.sx;
-      const int y = ys ? ys[b] : g.y0 + (b / g.gx) * g.sy;
-      const int sec = j / uvg::REF_LEN;
-      const int i = j % uvg::REF_LEN;
-      const bool is_top = (sec & 1) == 0;   // sections 0, 2: top
-      int v;
-      if (sec < 2) {
-        v = is_top ? top_at(s, g, x, y, i) : left_at(s, g, x, y, i);
-      } else if (i == 0) {
-        v = (left_at(s, g, x, y, 1) + 2 * left_at(s, g, x, y, 0) +
-             top_at(s, g, x, y, 1) + 2) >> 2;
-      } else {
-        const int last = is_top ? 2 * g.w : 2 * g.h;   // rw - 1, rh - 1
-        if (i < last) {
-          const int a = is_top ? top_at(s, g, x, y, i - 1) : left_at(s, g, x, y, i - 1);
-          const int m = is_top ? top_at(s, g, x, y, i) : left_at(s, g, x, y, i);
-          const int c = is_top ? top_at(s, g, x, y, i + 1) : left_at(s, g, x, y, i + 1);
-          v = (a + 2 * m + c + 2) >> 2;
-        } else {
-          v = is_top ? top_at(s, g, x, y, i) : left_at(s, g, x, y, i);
-        }
-      }
-      refs[idx] = v;
-    } else {
-      const int k = idx - n_refs;
-      const int p = k % hw;
-      const int fb = k / hw;
-      const int b = fb % g.B;
-      const int* s = src + static_cast<long long>(fb / g.B) * g.H * g.W;
-      const int x = (xs ? xs[b] : g.x0 + (b % g.gx) * g.sx) + p % g.w;
-      const int y = (ys ? ys[b] : g.y0 + (b / g.gx) * g.sy) + p / g.w;
-      blocks[k] = s[uvg::clampi(y, 0, g.H - 1) * g.W + uvg::clampi(x, 0, g.W - 1)];
+  // 2. the unfiltered lines into shared memory, the blocks to their output
+  int lv[KL];
+  int4 bv[KB];
+#pragma unroll
+  for (int k = 0; k < KL; ++k) {
+    const int e = tid + k * NT;
+    if (e < nu * G::LINES) {
+      const int u = e / G::LINES, i = e - u * G::LINES;
+      const int r = i < G::LT ? oy[u] - 1 : oy[u] + (i - G::LT) - 1;
+      const int c = i < G::LT ? ox[u] + i - 1 : ox[u] - 1;
+      lv[k] = refsrc[base[u] + uvg::clampi(r, 0, Hp - 1) * Wp +
+                     uvg::clampi(c, 0, Wp - 1)];
     }
+  }
+#pragma unroll
+  for (int k = 0; k < KB; ++k) {
+    const int e = tid + k * NT;
+    if (e < nu * G::BQ) {
+      const int u = e / G::BQ, q = e - u * G::BQ;
+      const int r = q / G::WQ, x = ox[u] + (q - r * G::WQ) * 4;
+      const int* s = src + base[u] +
+                     static_cast<long long>(uvg::clampi(oy[u] + r, 0, Hp - 1)) * Wp;
+      if (vec && (ox[u] & 3) == 0 && ox[u] >= 0 && ox[u] + W <= Wp) {
+        bv[k] = *reinterpret_cast<const int4*>(s + x);
+      } else {
+        bv[k] = make_int4(s[uvg::clampi(x, 0, Wp - 1)], s[uvg::clampi(x + 1, 0, Wp - 1)],
+                          s[uvg::clampi(x + 2, 0, Wp - 1)],
+                          s[uvg::clampi(x + 3, 0, Wp - 1)]);
+      }
+    }
+  }
+  int* lflat = &lines[0][0];
+#pragma unroll
+  for (int k = 0; k < KL; ++k) {
+    const int e = tid + k * NT;
+    if (e < nu * G::LINES) lflat[e] = lv[k];
+  }
+  int4* bout = reinterpret_cast<int4*>(blocks) + static_cast<long long>(fb0) * G::BQ;
+#pragma unroll
+  for (int k = 0; k < KB; ++k) {
+    const int e = tid + k * NT;
+    if (e < nu * G::BQ) bout[e] = bv[k];
+  }
+  __syncthreads();
+
+  // 3. the reference rows in shared memory: position i of all four
+  // sections [top | left | ftop | fleft] from one read of the lines
+#pragma unroll
+  for (int k = 0; k < KI; ++k) {
+    const int e = tid + k * NT;
+    if (e < nu * uvg::REF_LEN) {
+      const int u = e / uvg::REF_LEN, i = e - u * uvg::REF_LEN;
+      const int* t = lines[u];
+      const int* l = t + G::LT;
+      const int ti = t[min(i, G::LT - 1)], li = l[min(i, G::LL - 1)];
+      int ft = ti, fl = li;
+      if (i == 0) {
+        ft = fl = (l[1] + 2 * l[0] + t[1] + 2) >> 2;
+      } else {
+        // i + 1 <= 2w < Lt and i + 1 <= 2h < Ll: ti, li are t[i], l[i]
+        if (i < 2 * W) ft = (t[i - 1] + 2 * ti + t[i + 1] + 2) >> 2;
+        if (i < 2 * H) fl = (l[i - 1] + 2 * li + l[i + 1] + 2) >> 2;
+      }
+      int* r = row[u];
+      r[i] = ti;
+      r[uvg::REF_LEN + i] = li;
+      r[2 * uvg::REF_LEN + i] = ft;
+      r[3 * uvg::REF_LEN + i] = fl;
+    }
+  }
+  __syncthreads();
+
+  // 4. the rows out, 16 bytes a thread
+  int4* rout = reinterpret_cast<int4*>(refs) + static_cast<long long>(fb0) * RQ;
+  const int4* rs = reinterpret_cast<const int4*>(&row[0][0]);
+#pragma unroll
+  for (int k = 0; k < KR; ++k) {
+    const int e = tid + k * NT;
+    if (e < nu * RQ) rout[e] = rs[e];
   }
 }
 
-int launch(const int* src, const int* refsrc, const int* xs, const int* ys,
-           const Grid& g, int F, int* refs, int* blocks, cudaStream_t stream) {
-  const long long n = static_cast<long long>(F) * g.B * (uvg::NREF + g.w * g.h);
-  if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  const int threads = 256;
-  refs_blocks_grid_kernel<<<uvg::grid_for(n, threads), threads, 0, stream>>>(
-      src, refsrc, xs, ys, g, F, refs, blocks);
+template <int W, int H>
+int launch(const int* src, const int* refsrc, const Pos& pos, int Hp, int Wp,
+           int n, bool vec, int* refs, int* blocks, cudaStream_t stream) {
+  using G = RGeo<W, H>;
+  const int grid = (n + G::U - 1) / G::U;
+  refs_blocks_kernel<W, H><<<grid, NT, 0, stream>>>(src, refsrc, pos, Hp, Wp, n,
+                                                    vec, refs, blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// F frames of B blocks each; refs and blocks 16-byte aligned
+int dispatch(const void* src, const void* refsrc, const Pos& pos, int F, int Hp,
+             int Wp, int w, int h, void* refs, void* blocks, void* stream) {
+  const long long n = static_cast<long long>(F) * pos.B;
+  if (n >= (1LL << 31) || reinterpret_cast<uintptr_t>(refs) % 16 ||
+      reinterpret_cast<uintptr_t>(blocks) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  const int* s = static_cast<const int*>(src);
+  const int* rs = static_cast<const int*>(refsrc);
+  // int4 row loads: every row start 16-byte aligned where x % 4 == 0
+  const bool vec = Wp % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  int* r = static_cast<int*>(refs);
+  int* b = static_cast<int*>(blocks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define UVG_REFS(WW, HH) \
+  if (w == WW && h == HH) return launch<WW, HH>(s, rs, pos, Hp, Wp, static_cast<int>(n), vec, r, b, st);
+#define UVG_REFS_ROW(WW) UVG_REFS(WW, 4) UVG_REFS(WW, 8) UVG_REFS(WW, 16) UVG_REFS(WW, 32) UVG_REFS(WW, 64)
+  UVG_REFS_ROW(4) UVG_REFS_ROW(8) UVG_REFS_ROW(16) UVG_REFS_ROW(32) UVG_REFS_ROW(64)
+#undef UVG_REFS_ROW
+#undef UVG_REFS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -123,23 +222,17 @@ extern "C" int refs_blocks_grid(const void* src, const void* refsrc, int F,
                                 int H, int W, int w,
                                 int h, int x0, int y0, int sx, int sy, int gx,
                                 int gy, void* refs, void* blocks, void* stream) {
-  Grid g{H, W, w, h, x0, y0, sx, sy, gx, gx * gy,
-         std::min(3 * w + 3, uvg::REF_LEN), std::min(3 * h + 3, uvg::REF_LEN)};
-  return launch(static_cast<const int*>(src), static_cast<const int*>(refsrc),
-                nullptr, nullptr, g, F, static_cast<int*>(refs),
-                static_cast<int*>(blocks), static_cast<cudaStream_t>(stream));
+  const Pos pos{nullptr, nullptr, x0, y0, sx, sy, gx, gx * gy};
+  return dispatch(src, refsrc, pos, F, H, W, w, h, refs, blocks, stream);
 }
 
 // K12a: one plane, B blocks at (xs[b], ys[b]) (int32 arrays on the device)
 extern "C" int refs_blocks(const void* src, int H, int W, const void* xs,
                            const void* ys, int B, int w, int h, void* refs,
                            void* blocks, void* stream) {
-  Grid g{H, W, w, h, 0, 0, w, h, 1, B,
-         std::min(3 * w + 3, uvg::REF_LEN), std::min(3 * h + 3, uvg::REF_LEN)};
-  return launch(static_cast<const int*>(src), static_cast<const int*>(src),
-                static_cast<const int*>(xs), static_cast<const int*>(ys), g, 1,
-                static_cast<int*>(refs), static_cast<int*>(blocks),
-                static_cast<cudaStream_t>(stream));
+  const Pos pos{static_cast<const int*>(xs), static_cast<const int*>(ys), 0, 0,
+                w, h, 1, B};
+  return dispatch(src, src, pos, 1, H, W, w, h, refs, blocks, stream);
 }
 
 UVG_ERROR_ENTRY(refs_blocks_grid)

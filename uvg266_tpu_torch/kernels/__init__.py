@@ -31,7 +31,7 @@ BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-_HEADERS = ("common.cuh", "butterfly.cuh", "qpel.cuh")
+_HEADERS = ("common.cuh", "butterfly.cuh", "qpel.cuh", "rd_tail.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong

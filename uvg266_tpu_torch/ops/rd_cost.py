@@ -15,8 +15,10 @@ reference's make_rd_cost_pred_fn) costs one given prediction per block,
 with the quant rounding of an inter (default) or intra slice and extra
 bits. K11 ``mts_search`` (csrc/mts_search.cu, the reference's
 make_mts_search_fn) costs one given prediction under each of the five MTS
-transform pairs and picks the first minimum. All three share the RD tail.
-K12c ``rough_refine`` (the reference's make_rough_refine_fn, the rough
+transform pairs and picks the first minimum. All three compute the same
+RD tail (_rd_tail_plain); K4 and K6 share its device code
+(csrc/rd_tail.cuh), whose arithmetic rd_tail_sep and rd_cost_pred_sep
+emulate (tests/test_torch_rd_tail_design.py). K12c ``rough_refine`` (the reference's make_rough_refine_fn, the rough
 intra search) is a chain: K2 over the 35 stage-1 modes, K3, the stage-1
 selection (csrc/rough_refine.cu), K12b over the 4 refine modes, K3, the
 stage-2 selection (the same source), K6 on the winner.
@@ -69,8 +71,8 @@ def quant_consts(w: int, h: int, bitdepth: int, qp: int,
 
 def _rd_tail_plain(pred, blk, c: dict, w: int, h: int, bitdepth: int, wts,
                    mat_w, mat_h, mask=None):
-    """The RD tail shared by K4, K6 and K11 (csrc/common.cuh
-    rd_tail_block): pred, blk [b, h, w] int64; mat_w [w, w], mat_h [h, h]
+    """The RD tail shared by K4, K6 and K11 (csrc/rd_tail.cuh rd_tail;
+    K11 runs its own form, csrc/mts_search.cu): pred, blk [b, h, w] int64; mat_w [w, w], mat_h [h, h]
     the horizontal and vertical transform matrices (rows = frequencies);
     mask [h, w] the coefficients kept (default all) -> (bits [b] float32
     as per-bucket counts times wts, ssd [b] float32 of the int32-wrapped
@@ -101,12 +103,14 @@ def _rd_tail_plain(pred, blk, c: dict, w: int, h: int, bitdepth: int, wts,
 
 
 def rd_cost_plain(preds, src, satds, qp: int, lam: float, wts, mode_bits,
-                  tables: dict, bitdepth: int):
+                  tables: dict, bitdepth: int, tail=None):
     """K4, plain version. preds [B, M, h, w], src [B, h, w], satds [B, M]
     int32 (M = 67 intra modes, or the MIP candidates of a class); wts [4],
     mode_bits [M] float32; tables from
     ops.tables.device_tables -> (best [B] int32, rd [B] float32,
-    satd_best [B] int32)."""
+    satd_best [B] int32). ``tail`` (default _rd_tail_plain) computes the
+    RD tail: rd_tail_sep gives the kernel's arithmetic."""
+    tail = tail or _rd_tail_plain
     B, _M, h, w = preds.shape
     c = quant_consts(w, h, bitdepth, qp)
     dev = preds.device
@@ -121,7 +125,7 @@ def rd_cost_plain(preds, src, satds, qp: int, lam: float, wts, mode_bits,
         sl = slice(b0, min(b0 + step, B))
         pred = preds[sl][torch.arange(sl.stop - sl.start, device=dev),
                          best[sl]].long()
-        bits[sl], ssd[sl], _lv = _rd_tail_plain(
+        bits[sl], ssd[sl], _lv = tail(
             pred, src[sl].long(), c, w, h, bitdepth, wts, tables["mat_w"],
             tables["mat_h"])
     rd = ssd + lam32 * (bits + mode_bits[best])
@@ -162,11 +166,12 @@ def rd_cost(preds, src, satds, qp: int, lam: float, wts, mode_bits,
 
 def rd_cost_pred_plain(pred, src, qp: int, lam: float, wts, extra_bits,
                        tables: dict, bitdepth: int,
-                       is_intra_slice: bool = False):
+                       is_intra_slice: bool = False, tail=None):
     """K6, plain version: the RD cost of one given prediction per block
     (quant rounding 85, or 171 with is_intra_slice). pred, src [B, h, w]
     int32; wts [4], extra_bits [B] float32 -> rd [B] float32 =
-    ssd + lam * (bits + extra_bits)."""
+    ssd + lam * (bits + extra_bits). ``tail`` as in rd_cost_plain."""
+    tail = tail or _rd_tail_plain
     B, h, w = pred.shape
     c = quant_consts(w, h, bitdepth, qp, is_intra_slice)
     dev = pred.device
@@ -176,7 +181,7 @@ def rd_cost_pred_plain(pred, src, qp: int, lam: float, wts, extra_bits,
     step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
     for b0 in range(0, B, step):
         sl = slice(b0, min(b0 + step, B))
-        bits[sl], ssd[sl], _lv = _rd_tail_plain(
+        bits[sl], ssd[sl], _lv = tail(
             pred[sl].long(), src[sl].long(), c, w, h, bitdepth, wts,
             tables["mat_w"], tables["mat_h"])
     return ssd + lam32 * (bits + extra_bits)
@@ -197,6 +202,9 @@ def rd_cost_pred(pred, src, qp: int, lam: float, wts, extra_bits,
             or extra_bits.dtype != torch.float32):
         raise ValueError("rd_cost_pred: expects int32 pred, src [B, h, w] "
                          "and float32 wts, extra_bits [B]")
+    if pred.data_ptr() % 16 or src.data_ptr() % 16:
+        raise ValueError("rd_cost_pred: pred and src must be 16-byte aligned "
+                         "(the kernel reads them four samples at a time)")
     c = quant_consts(w, h, bitdepth, qp, is_intra_slice)
     rd = torch.empty((B,), dtype=torch.float32, device=dev)
     kernels.launch("rd_cost_pred", dev, pred.data_ptr(), src.data_ptr(),
@@ -276,6 +284,53 @@ def _bfly_inv(c, m):
     e = _imatmul(c[..., 0::2], m[0::2, :hn])
     o = _imatmul(c[..., 1::2], m[1::2, :hn])
     return _in32(torch.cat([e + o, (e - o).flip(-1)], -1))
+
+
+def rd_tail_sep(pred, blk, c: dict, w: int, h: int, bitdepth: int, wts,
+                mat_w, mat_h):
+    """The RD tail as csrc/rd_tail.cuh computes it for K4 and K6, in plain
+    PyTorch: the DCT2 passes on even/odd partial butterflies (_bfly_fwd,
+    _bfly_inv: rows, then columns, then back), the bucket counts of
+    levels 0, 1, 2 and >= 3 as the kernel counts them, the SSD summed in
+    uint32. Same arguments and results as _rd_tail_plain without a mask,
+    which it must equal bit for bit; raises where a sum would leave
+    int32."""
+    s1, s2 = fwd_shifts(w, h, bitdepth)
+    si1, si2 = inv_shifts(bitdepth)
+    mw, mh = mat_w.long(), mat_h.long()
+
+    def fwd_shift(x, s):
+        return _wrap((x + (1 << (s - 1))) >> s, 16)
+
+    def inv_shift(x, s):
+        return ((x + (1 << (s - 1))) >> s).clamp(-32768, 32767)
+
+    t = fwd_shift(_bfly_fwd(blk - pred, mw), s1)            # rows
+    coef = fwd_shift(_bfly_fwd(t.mT, mh), s2).mT           # columns
+    level = (_wrap(coef.abs() * c["scale"] + c["add"], 32)
+             >> c["q_bits"]).clamp(0, 32767)
+    cnt = [(level == 0).sum(dim=(-2, -1)), (level == 1).sum(dim=(-2, -1)),
+           (level == 2).sum(dim=(-2, -1)), (level >= 3).sum(dim=(-2, -1))]
+    cnt = [n.to(torch.float32) for n in cnt]
+    bits = ((cnt[0] * wts[0] + cnt[1] * wts[1]) + cnt[2] * wts[2]) \
+        + cnt[3] * wts[3]
+    dq = (_wrap(coef.sign() * level * c["iscale"]
+                + (1 << (c["dq_shift"] - 1)), 32) >> c["dq_shift"]) \
+        .clamp(-32768, 32767)
+    u = inv_shift(_bfly_inv(dq.mT, mh), si1).mT              # columns
+    r = inv_shift(_bfly_inv(u, mw), si2)                    # rows
+    d = blk - (pred + r).clamp(0, (1 << bitdepth) - 1)
+    ssd = ((d * d) & 0xFFFFFFFF).sum(dim=(-2, -1)) & 0xFFFFFFFF
+    return bits, _wrap(ssd, 32).to(torch.float32), level
+
+
+def rd_cost_pred_sep(pred, src, qp: int, lam: float, wts, extra_bits,
+                     tables: dict, bitdepth: int,
+                     is_intra_slice: bool = False):
+    """K6's arithmetic as csrc/rd_cost_pred.cu computes it: rd_cost_pred_plain
+    on rd_tail_sep."""
+    return rd_cost_pred_plain(pred, src, qp, lam, wts, extra_bits, tables,
+                              bitdepth, is_intra_slice, tail=rd_tail_sep)
 
 
 def _joint_fwd(v, s, k: int):
