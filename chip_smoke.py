@@ -21,13 +21,16 @@ Phases, one line each (or a few), any failure exits non-zero:
      where the 3w+3 top line leaves the plane (grids leaving it, origins
      off the 4-sample grid, two frames with a separate reference plane).
      Times from CUDA events over 20 calls (and, for K1-K4, K6 and
-     K9a-K12a, over 20 calls captured in a CUDA graph and replayed: their
-     device time without the host's launch path; also K7 and K8 in phase
-     4), launches
+     K9a-K12b, over 20 calls captured in a CUDA graph and replayed: their
+     device time without the host's launch path; also K5, K7 and K8 in
+     phase 4), launches
      per frame and the least time the card could take (bytes over 3.35
      TB/s or operations over 67 T/s);
   4. the same for the inter kernels at 832x480: K5 pseudo_recon (frame,
-     random and edge planes, 8 and 10 bits, three QPs), K7 frame_inter (one
+     random and edge planes, 8 and 10 bits, three QPs; also at 144x80,
+     where the last thread block holds one tile, and at 1920x1088, random,
+     checkerboard, all-max and the clip's planes, qp_scaled 0, 22, 37 and
+     the largest; timed at 1920x1088 too), K7 frame_inter (one
      reference, every inter class of the dense search; its tile pass alone
      against the plain tile SSD maps), K6 rd_cost_pred on K7's
      predictions and at every (w, h) in {4..64}^2 (8 and 10 bits, quant
@@ -56,8 +59,9 @@ Phases, one line each (or a few), any failure exits non-zero:
      the winner's only, held against the plain gather) at the inter
      classes of the 10-bit LD path, also with the blocks in reverse
      order (and on all-max 10-bit planes at every class, 64x64 included),
-     K2 over the 35 stage-1 modes, K12b predict_modes (the refine lists and
-     random lists) and the K12c rough_refine chain at every class of the
+     K2 over the 35 stage-1 modes, K12b predict_modes (the refine lists,
+     random lists, and lists with repeated modes and modes outside [2, 66],
+     which clamp) and the K12c rough_refine chain at every class of the
      rough path: all outputs equal, tolerance 0. K9a and both K9b forms are also
      timed on a CUDA graph of 20 calls, beside the earlier designs' times;
   4d. the batched transforms and quantisers, whose only callers are their
@@ -115,8 +119,10 @@ Phases, one line each (or a few), any failure exits non-zero:
      a three-frame clip of the dense path
      (I, P, B), frame 0 of the MIP and MTS paths, the first two frames of
      the 10-bit LD path (I, P), a three-frame clip of the slow-tools RA
-     path (I, P, B) and frame 0 of the rough path must give byte-identical
-     access units and recon;
+     path (I, P, B), frame 0 of the rough path and a three-frame LD clip at
+     136x72 (its plane pads to 144x80: K5's last thread block holds one
+     tile, the last CTU row is partial) must give byte-identical access
+     units and recon;
   9. 192x128 clips encoded on the card (all-intra, LD, rdoq LD, dense RA,
      MIP, MTS, 10-bit LD, slow-tools RA, rough) decode through the port's oracle
      decoder, with their references, to the encoder's reconstruction;
@@ -173,7 +179,8 @@ INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
 # wrappers copy the positions from the host)
 GRAPH_KERNELS = INTRA_KERNELS + ("fullpel_search", "frac_search", "mip_preds",
                                  "mts_search", "frame_inter", "leaf_qpel",
-                                 "rd_cost_pred", "refs_blocks")
+                                 "rd_cost_pred", "refs_blocks",
+                                 "predict_modes", "pseudo_recon")
 TR_KERNELS = ("fwd_transform", "inv_transform", "quant_levels",
               "dequant_levels")
 TR_QPS = (0, 22, 27, 37)      # qp_scaled of phase 4d, and the largest
@@ -204,7 +211,17 @@ EARLIER_MS = {("predict67", 64): 0.1222, ("predict67", 32): 0.1266,
               ("refs_blocks_grid", 16): 0.0133,
               ("refs_blocks_grid", 8): 0.0362,
               ("refs_blocks", 64): 0.0044, ("refs_blocks", 32): 0.0059,
-              ("refs_blocks", 16): 0.0107, ("refs_blocks", 8): 0.0277}
+              ("refs_blocks", 16): 0.0107, ("refs_blocks", 8): 0.0277,
+              # K12b (a thread block per block, the per-sample tables) per
+              # rough class on K12c stage 1's refine lists, and K5 (a thread
+              # block per tile, 16-term products) at 832x480 (w = 16: its
+              # tiles): on a CUDA graph (tools/k12b_k5_times.py on the tree
+              # before their redesign)
+              ("predict_modes", 64): 0.0246, ("predict_modes", 32): 0.0101,
+              ("predict_modes", 16): 0.0096, ("predict_modes", 8): 0.0143,
+              ("pseudo_recon", 16): 0.0099}
+# K5 before its redesign at 1920x1088, 8 bits, as above
+K5_BEFORE_MS = {"1920x1088": 0.0452}
 # K9a and K9b before their redesign (a thread per offset; a thread block
 # per block and offset), ms per reference at 10 bits (16x16 + 8x8), CUDA
 # events, this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md)
@@ -337,6 +354,19 @@ def time_ms(torch, fn, n: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def warm_up(torch, seconds: float = 0.5) -> None:
+    """Keep the card busy for about ``seconds`` (float32 products), so that
+    the times that follow are taken at its working clocks."""
+    x = torch.randn(4096, 4096, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            x = x @ x
+            x = x / x.abs().max()
+        torch.cuda.synchronize()
 
 
 def graph_ms(torch, fn, n: int, reps: int = 5) -> float:
@@ -543,11 +573,24 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
         tables = M * 64 + (M * 4 if M < 67 else 0)
         return B * 780 * 4 + tables + B * M * hw * 4, B * M * hw * 12
     if name == "predict_modes":
-        # the references and the mode lists in, the [67, h*w] tables read
-        # once, the predictions out; 12 operations per sample as K2
+        # the mode lists and the 67 descriptors in, of each block's
+        # references the samples its modes read (ref_samples, summed over
+        # the blocks: ops.tables.mode_reads of the block's list), the
+        # predictions out; 12 operations per sample as K2
         R_ = kw["R"]
-        return (B * 780 * 4 + B * R_ * 4 + 67 * hw * 12 + 67 * 8
+        return (B * R_ * 4 + 67 * 64 + kw["ref_samples"] * 4
                 + B * R_ * hw * 4, B * R_ * hw * 12)
+    if name == "rough_select":
+        # K12c stage 1: the 35 SATDs, the mode bits and m1 in, the refine
+        # list out; per block 35 costs (a conversion, a multiply-add) and
+        # two scans
+        return (B * 35 + 67 + 35 + B * 4) * 4, B * (35 * 3 + 33 * 2)
+    if name == "rough_pick":
+        # K12c stage 2: 39 SATDs, the refine list, the mode bits and m1 in,
+        # the winner's prediction read and written, three values out; per
+        # block 39 costs and a scan
+        return ((B * (35 + 4 + 4) + 67 + 35 + 2 * B * hw + 3 * B) * 4,
+                B * 39 * 4)
     if name == "fullpel_search":
         # the reference plane, the blocks, positions and penalty in; MVs
         # and cost out. corr: a multiply-add per sample and offset; r2 as
@@ -578,11 +621,11 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
         # stage 2 (39 costs, a scan, the winner gathered), K6
         parts = [work("predict67", B, w, h, H_, W_, M=35),
                  work("satd67", B, w, h, H_, W_, M=35),
-                 ((B * 35 + 67 + 35 + B * 4) * 4, B * (35 * 3 + 33 * 2)),
-                 work("predict_modes", B, w, h, H_, W_, R=4),
+                 work("rough_select", B, w, h, H_, W_),
+                 work("predict_modes", B, w, h, H_, W_, R=4,
+                      ref_samples=kw["ref_samples"]),
                  work("satd67", B, w, h, H_, W_, M=4),
-                 ((B * (35 + 4 + 4) + 67 + 35 + 2 * B * hw + 3 * B) * 4,
-                  B * 39 * 4),
+                 work("rough_pick", B, w, h, H_, W_),
                  work("rd_cost_pred", B, w, h, H_, W_)]
         return sum(p[0] for p in parts), sum(p[1] for p in parts)
     if name in ("fwd_transform", "inv_transform"):
@@ -650,6 +693,14 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
                 + 49 * 64 * satd_ops(8) + 49)
     return (nt * (324 + 64 + 1) * 4 + 49 * 4 + nl * 51 * 4,
             nt * per_tile + nl * 49 * 2)
+
+
+def ref_samples(reads, modes) -> int:
+    """The reference samples K12b's function reads for mode lists modes [B,
+    R] (clamped to [2, 66]), summed over the blocks: per block the union of
+    its modes' rows of reads (ops.tables.mode_reads, bool [67, 780])."""
+    m = np.clip(modes.cpu().numpy(), 2, 66)
+    return int(reads[m].any(axis=1).sum())
 
 
 def fwd_f64(torch, x, mw, mh, s1, s2, keep_w, keep_h):
@@ -752,7 +803,7 @@ def main() -> int:
     from uvg266_tpu_torch.ops.tables import (device_mts_tables, device_tables,
                                              frame_tables, me_penalties,
                                              mip_matrix, mip_mode_bits,
-                                             rough_modes)
+                                             mode_reads, rough_modes)
     from uvg266_tpu_torch.oracle.decoder import decode_au
 
     dev = torch.device("cuda")
@@ -1020,9 +1071,38 @@ def main() -> int:
                 same("pseudo_recon", f"{bd}-bit {tag} qp{qp}",
                      pr.pseudo_recon(src, qps, bd),
                      pr.pseudo_recon_plain(src, qps, bd))
+    # K5 where its tile count is not a multiple of its tiles per thread
+    # block (144x80, the 136x72 LD clip's padded plane: 45 tiles) and on a
+    # 1920x1088 plane: random, checkerboard, all-max and (8 bits) the clip,
+    # qp_scaled 0, 22, 37 and the largest
+    big = torch.from_numpy(synth_clip(1920, 1088, 1)[0][0]).to(dev)
+    for (ph, pw) in ((80, 144), (1088, 1920)):
+        for bd in (8, 10):
+            mx = (1 << bd) - 1
+            planes = {
+                "rand": torch.randint(0, mx + 1, (ph, pw), generator=gen,
+                                      device=dev, dtype=torch.int32),
+                "edge": (((torch.arange(ph, device=dev)[:, None]
+                           + torch.arange(pw, device=dev)[None]) % 2)
+                         * mx).to(torch.int32),
+                "max": torch.full((ph, pw), mx, dtype=torch.int32,
+                                  device=dev)}
+            if bd == 8:
+                planes["clip"] = big[:ph, :pw].contiguous()
+            for tag, src in planes.items():
+                for qps in (0, 22, 37, 51 + 6 * (bd - 8)):
+                    same("pseudo_recon", f"{pw}x{ph} {bd}-bit {tag} qp{qps}",
+                         pr.pseudo_recon(src, qps, bd),
+                         pr.pseudo_recon_plain(src, qps, bd))
     timed("pseudo_recon", lambda: pr.pseudo_recon(frame_src, LD_QP, 8),
           lambda: pr.pseudo_recon_plain(frame_src, LD_QP, 8), f"{W}x{H}",
           B=0, w=16, h=16, H_=H, W_=W)
+    timed("pseudo_recon", lambda: pr.pseudo_recon(big, LD_QP, 8),
+          lambda: pr.pseudo_recon_plain(big, LD_QP, 8), "1920x1088",
+          account=False, B=0, w=16, h=16, H_=1088, W_=1920)
+    print(f"  pseudo_recon 1920x1088: earlier design "
+          f"{K5_BEFORE_MS['1920x1088']:.4f} ms device (graph)", flush=True)
+    del big
     # K7 + K6: frame 1 against frame 0, the dense path's inter classes
     dcfg = dense_config(Config)
     dctrl = EncoderControl(dcfg)
@@ -1461,7 +1541,13 @@ def main() -> int:
                 rand = torch.randint(2, 67, (B, 4), generator=gen,
                                      device=dev, dtype=torch.int32)
                 rand[0] = torch.tensor([2, 66, 2, 66], dtype=torch.int32)
-                for ltag, ml in (("refine", refine), ("random", rand)):
+                # modes outside [2, 66] (clamped) and repeated ones
+                wide = torch.randint(-3, 81, (B, 4), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                wide[0] = torch.tensor([-1, 0, 1, 67], dtype=torch.int32)
+                wide[-1] = torch.tensor([80, 80, 34, 34], dtype=torch.int32)
+                for ltag, ml in (("refine", refine), ("random", rand),
+                                 ("clamped", wide)):
                     same("predict_modes", f"{what} {ltag}",
                          ib.predict_modes(refs, ml, tabs),
                          ib.predict_modes_plain(refs, ml, tabs))
@@ -1474,7 +1560,8 @@ def main() -> int:
                   m1)
         refine = rc.rough_select(ib.satd67(ib.predict67(refs, tabs, m1),
                                            blocks), lam, ft["mode_bits"], m1)
-        shape = dict(B=B, w=w, h=h, H_=H, W_=W)
+        shape = dict(B=B, w=w, h=h, H_=H, W_=W,
+                     ref_samples=ref_samples(mode_reads(w, h), refine))
         timed("predict_modes", lambda: ib.predict_modes(refs, refine, tabs),
               lambda: ib.predict_modes_plain(refs, refine, tabs), f"{w}x{h}",
               R=4, **shape)
@@ -1942,6 +2029,15 @@ def main() -> int:
         fail("slow RA card-vs-CPU clip lacks an I, P or B slice")
     msg.append(card_vs_cpu("slow RA", sra_cfg, sshort, 3, rclip[:3]))
     msg.append(card_vs_cpu("rough", rcfg, per_class["rough"], 1, clip[:1]))
+    # the LD path at 136x72: its plane pads to 144x80, so K5's last thread
+    # block holds one tile, and the last CTU row is partial
+    s_cfg = ld_config(Config, 136, 72)
+    s_clip = [FramePlanes(*f) for f in synth_clip(136, 72, 3)]
+    n_k5 = kernels.LAUNCHES["pseudo_recon"]
+    s_outs = encode(Encoder(s_cfg, device=dev), FramePlanes, s_clip)
+    if kernels.LAUNCHES["pseudo_recon"] - n_k5 != 2:
+        fail("LD 136x72: K5 did not launch once per P frame")
+    msg.append(card_vs_cpu("LD 136x72", s_cfg, s_outs, 3, s_clip))
     print("phase 8 card vs CPU byte-identical: " + "; ".join(msg), flush=True)
 
     # --- 9. small clips through the oracle decoder --------------------------

@@ -718,3 +718,74 @@ def test_redesigned_k6_k1_equal_plain(card, w, h):
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before
             if kernels.LAUNCHES[k] != before[k]} == n
+
+
+def _k12b_k5_cases():
+    sizes = (4, 8, 16, 32, 64)
+    return ([("k12b", w, h) for w in sizes for h in sizes]
+            + [("k5", H, W) for (H, W) in ((16, 16), (32, 48), (80, 144),
+                                           (480, 832), (1088, 1920))])
+
+
+@pytest.mark.parametrize("kind,a,b", _k12b_k5_cases())
+def test_redesigned_k12b_k5_equal_plain(card, kind, a, b):
+    """K12b predict_modes (K2's descriptor route from angular.cuh, about
+    4096 output ints a thread block, only the reference samples the modes
+    reach) at every (w, h) in {4..64}^2, 8 and 10 bits, on the
+    references of tests/test_torch_predict_desc.py, with refine-like lists,
+    random lists with duplicates and lists with modes outside [2, 66];
+    B = 6, 37 and 6240 (not multiples of the blocks a thread block holds).
+    K5 pseudo_recon (four tiles a thread block, partial butterflies,
+    shuffle DC sum) on 16x16 .. 1920x1088 planes (45 tiles at 144x80: a
+    partial last thread block), 8 and 10 bits, qp_scaled 0, 22, 37 and the
+    largest, random, all-max and checkerboard planes; it refuses a plane
+    that is not 16-byte aligned. Every output equal, one launch each."""
+    from test_torch_predict_desc import _refs
+    n = {"predict_modes": 0, "pseudo_recon": 0}
+    before = dict(kernels.LAUNCHES)
+    rng = np.random.default_rng(a * 1000 + b)
+    if kind == "k12b":
+        w, h = a, b
+        for bd in (8, 10):
+            tabs = tb.device_tables(w, h, bd, "cuda")
+            mx = (1 << bd) - 1
+            for B in (6, 37, 6240):
+                refs = (_refs(bd, w + h + bd).to(card) if B == 6 else _t(
+                    rng.integers(0, mx + 1, (B, 780)).astype(np.int32),
+                    card))
+                a0 = rng.integers(1, 34, (B, 2)) * 2
+                lists = [np.clip(np.stack([a0[:, 0] - 1, a0[:, 0] + 1,
+                                           a0[:, 1] - 1, a0[:, 1] + 1], 1),
+                                 2, 66),
+                         rng.integers(2, 67, (B, 4)),
+                         rng.integers(-3, 81, (B, 4))]
+                lists[1][0] = (34, 34, 2, 66)
+                lists[2][0] = (-1, 0, 1, 67)
+                lists[2][-1] = (80, 80, 3, 3)
+                for ml in lists:
+                    m = _t(ml.astype(np.int32), card)
+                    got = ib.predict_modes(refs, m, tabs)
+                    want = ib.predict_modes_plain(refs, m, tabs)
+                    assert got.dtype == want.dtype and torch.equal(got, want)
+                    n["predict_modes"] += 1
+    else:
+        from uvg266_tpu_torch.ops import pseudo_recon as pr
+        H, W = a, b
+        for bd in (8, 10):
+            mx = (1 << bd) - 1
+            planes = [rng.integers(0, mx + 1, (H, W)), np.full((H, W), mx),
+                      ((np.arange(H)[:, None] + np.arange(W)[None]) % 2) * mx]
+            for p_ in planes:
+                src = _t(p_.astype(np.int32), card)
+                for qps in (0, 22, 37, 51 + 6 * (bd - 8)):
+                    got = pr.pseudo_recon(src, qps, bd)
+                    want = pr.pseudo_recon_plain(src, qps, bd)
+                    assert got.dtype == want.dtype and torch.equal(got, want)
+                    n["pseudo_recon"] += 1
+        flat = torch.zeros(H * W + 1, dtype=torch.int32, device=card)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pr.pseudo_recon(flat[1:].view(H, W), 27, 8)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {
+        k: v for k, v in n.items() if v}

@@ -78,4 +78,116 @@ __device__ __forceinline__ void inv_pass(const int* in, const int2* inv, int lt,
   emit(g + NL / 2, N - 1 - i, e1 - o1);
 }
 
+// The 16-point line forms (K5, pseudo_recon.cu): one whole line a thread
+// holds in registers, every output of it, the partial butterfly to its full
+// depth. VVC's 16-point DCT2 also satisfies M[2j][7-x] = (-1)^j M[2j][x]
+// and M[4m][3-x] = (-1)^m M[4m][x] (its even rows are the 8-point and
+// 4-point matrices), so the even half splits again twice: 88 multiply-adds a
+// line, not 128. The coefficients (line16_coefs) are read four at a time,
+// by all threads at one address:
+//   [0, 64)   the odd rows 2j+1, x < 8 (row j at 8j);
+//   [64, 80)  rows 4m+2, x < 4;
+//   [80, 84)  rows 4 and 12, x < 2;  [84, 88)  rows 0 and 8, x < 2.
+constexpr int LINE16_N = 88;
+
+__device__ __forceinline__ void load_line16(const int8_t* __restrict__ m,
+                                            int* cf, int tid, int nt) {
+  for (int e = tid; e < LINE16_N; e += nt) {
+    int k, x;
+    if (e < 64) {
+      k = 2 * (e >> 3) + 1, x = e & 7;
+    } else if (e < 80) {
+      k = 4 * ((e - 64) >> 2) + 2, x = (e - 64) & 3;
+    } else if (e < 84) {
+      k = 8 * ((e - 80) >> 1) + 4, x = (e - 80) & 1;
+    } else {
+      k = 8 * ((e - 84) >> 1), x = (e - 84) & 1;
+    }
+    cf[e] = m[k * 16 + x];
+  }
+}
+
+// forward: o[k] = rnd + sum_x v[x] * M[k][x] (cf: 16-byte aligned; rnd,
+// a rounding offset, rides on the first multiply-add)
+__device__ __forceinline__ void fwd_line16(const int (&v)[16], const int* cf,
+                                           int rnd, int (&o)[16]) {
+  const int4* c4 = reinterpret_cast<const int4*>(cf);
+  int E[8], O[8];
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    E[x] = v[x] + v[15 - x];
+    O[x] = v[x] - v[15 - x];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int4 a = c4[2 * j], b = c4[2 * j + 1];
+    o[2 * j + 1] = rnd + O[0] * a.x + O[1] * a.y + O[2] * a.z + O[3] * a.w +
+                   O[4] * b.x + O[5] * b.y + O[6] * b.z + O[7] * b.w;
+  }
+  int EE[4], EO[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    EE[x] = E[x] + E[7 - x];
+    EO[x] = E[x] - E[7 - x];
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int4 a = c4[16 + m];
+    o[4 * m + 2] = rnd + EO[0] * a.x + EO[1] * a.y + EO[2] * a.z + EO[3] * a.w;
+  }
+  const int EEE0 = EE[0] + EE[3], EEE1 = EE[1] + EE[2];
+  const int EEO0 = EE[0] - EE[3], EEO1 = EE[1] - EE[2];
+  const int4 a = c4[20], b = c4[21];
+  o[4] = rnd + EEO0 * a.x + EEO1 * a.y;
+  o[12] = rnd + EEO0 * a.z + EEO1 * a.w;
+  o[0] = rnd + EEE0 * b.x + EEE1 * b.y;
+  o[8] = rnd + EEE0 * b.z + EEE1 * b.w;
+}
+
+// inverse: o[x] = rnd + sum_k c[k] * M[k][x] (cf: 16-byte aligned; rnd
+// enters every output through the two sums of rows 0 and 8)
+__device__ __forceinline__ void inv_line16(const int (&c)[16], const int* cf,
+                                           int rnd, int (&o)[16]) {
+  const int4* c4 = reinterpret_cast<const int4*>(cf);
+  int O[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int4 a = c4[2 * j], b = c4[2 * j + 1];
+    const int k = c[2 * j + 1];
+    O[0] += k * a.x;
+    O[1] += k * a.y;
+    O[2] += k * a.z;
+    O[3] += k * a.w;
+    O[4] += k * b.x;
+    O[5] += k * b.y;
+    O[6] += k * b.z;
+    O[7] += k * b.w;
+  }
+  int EO[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int4 a = c4[16 + m];
+    const int k = c[4 * m + 2];
+    EO[0] += k * a.x;
+    EO[1] += k * a.y;
+    EO[2] += k * a.z;
+    EO[3] += k * a.w;
+  }
+  const int4 a = c4[20], b = c4[21];
+  const int EEO0 = c[4] * a.x + c[12] * a.z, EEO1 = c[4] * a.y + c[12] * a.w;
+  const int EEE0 = rnd + c[0] * b.x + c[8] * b.z, EEE1 = rnd + c[0] * b.y + c[8] * b.w;
+  const int EE[4] = {EEE0 + EEO0, EEE1 + EEO1, EEE1 - EEO1, EEE0 - EEO0};
+  int E[8];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    E[x] = EE[x] + EO[x];
+    E[7 - x] = EE[x] - EO[x];
+  }
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    o[x] = E[x] + O[x];
+    o[15 - x] = E[x] - O[x];
+  }
+}
+
 }  // namespace uvg

@@ -67,49 +67,6 @@ __device__ __forceinline__ float bucket_bits(const int* cnt, const float* wts) {
       __fmul_rn(__int2float_rn(cnt[3]), wts[3]));
 }
 
-// --- the angular intra prediction of K2 (predict67.cu) and K12b
-// (predict_modes.cu) ------------------------------------------------------
-// The per-(mode, sample) tables of ops/intra_batch.py build_mode_tables,
-// stored narrow (K int16 x 4 taps, W int8 x 4 weights), and the per-mode
-// flags. For mode m >= 2 and sample p of a w x h block, e = m * w*h + p:
-//   ang = (sum_t r[K[e,t]] * W[e,t] + 32) >> 6, clipped where needs_clip;
-//   gradient PDPC ang += (wl*(side - ang) + 32) >> 6 where pdpc_on;
-//   hor/ver PDPC clip(ang + (wl*(side - topleft) + 32) >> 6) where hv_on
-// (make_predict_fn / make_predict_modes_fn). Products are < 2^20: int32 is
-// exact.
-struct AngTables {
-  const short4* K;            // [67, h*w] x 4 taps
-  const char4* W;             // [67, h*w] x 4 weights
-  const int8_t* pdpc_wl;      // [67, h*w]
-  const int16_t* pdpc_sidx;   // [67, h*w]
-  const int8_t* hv_wl;        // [67, h*w]
-  const int16_t* hv_sidx;     // [67, h*w]
-  const uint8_t* needs_clip;  // [67]
-  const uint8_t* pdpc_on;     // [67]
-  const uint8_t* hv_on;       // [67]
-  const int16_t* hv_topleft;  // [67]
-};
-
-// r: the block's 4*REF_LEN packed references (shared memory)
-__device__ __forceinline__ int angular_sample(const int* r, const AngTables& t,
-                                              int mode, long long e,
-                                              int max_pix) {
-  const short4 k = t.K[e];
-  const char4 wt = t.W[e];
-  int v = (r[k.x] * wt.x + r[k.y] * wt.y + r[k.z] * wt.z + r[k.w] * wt.w + 32) >> 6;
-  if (t.needs_clip[mode]) v = clampi(v, 0, max_pix);
-  if (t.pdpc_on[mode]) {
-    const int side = r[t.pdpc_sidx[e]];
-    v = v + ((t.pdpc_wl[e] * (side - v) + 32) >> 6);
-  }
-  if (t.hv_on[mode]) {
-    const int side = r[t.hv_sidx[e]];
-    const int tl = r[t.hv_topleft[mode]];
-    v = clampi(v + ((t.hv_wl[e] * (side - tl) + 32) >> 6), 0, max_pix);
-  }
-  return v;
-}
-
 }  // namespace uvg
 
 #define UVG_ERROR_ENTRY(name)                                     \

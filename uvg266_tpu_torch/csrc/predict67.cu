@@ -13,7 +13,7 @@
 // extent), so no per-sample table is read: planar (filtered references when
 // w*h > 32) and DC, each with the position-dependent PDPC, then a clip, as
 // before (make_predict_matmul_fn :467-513). Products are < 2^20: int32 is
-// exact.
+// exact. The angular arithmetic lives in angular.cuh, shared with K12b.
 //
 // Bound on this card: bytes, by the write of preds [B, M, h, w] int32
 // (about 420 MB per 832x480 frame over the four square classes). Design:
@@ -34,79 +34,12 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "angular.cuh"
 
 namespace {
 
-// the descriptor fields (ops/tables.py D_*)
-enum {
-  D_VERT, D_MAIN, D_SIDE, D_SD, D_INV, D_FILT, D_CLIP, D_PDPC, D_PSCALE,
-  D_PLIM, D_BASE, D_EXTN, D_MAINN, D_MODE, DESC_N = 16
-};
-constexpr int FILT_INT = 0, FILT_CUBIC = 1;     // else the gauss filter
-constexpr int PDPC_GRAD = 1, PDPC_HV = 2;
+using namespace uvg::ang;
 constexpr int THREADS = 256;
-
-// ops/intra.py CUBIC_FILTER
-__constant__ int kCubic[32][4] = {
-    {0, 64, 0, 0}, {-1, 63, 2, 0}, {-2, 62, 4, 0}, {-2, 60, 7, -1},
-    {-2, 58, 10, -2}, {-3, 57, 12, -2}, {-4, 56, 14, -2}, {-4, 55, 15, -2},
-    {-4, 54, 16, -2}, {-5, 53, 18, -2}, {-6, 52, 20, -2}, {-6, 49, 24, -3},
-    {-6, 46, 28, -4}, {-5, 44, 29, -4}, {-4, 42, 30, -4}, {-4, 39, 33, -4},
-    {-4, 36, 36, -4}, {-4, 33, 39, -4}, {-4, 30, 42, -4}, {-4, 29, 44, -5},
-    {-4, 28, 46, -6}, {-3, 24, 49, -6}, {-2, 20, 52, -6}, {-2, 18, 53, -5},
-    {-2, 16, 54, -4}, {-2, 15, 55, -4}, {-2, 14, 56, -4}, {-2, 12, 57, -3},
-    {-2, 10, 58, -2}, {-1, 7, 60, -2}, {0, 4, 62, -2}, {0, 2, 63, -1}};
-
-__host__ __device__ constexpr int clog2(int v) { return v <= 1 ? 0 : 1 + clog2(v >> 1); }
-
-template <int W, int H>
-struct Geo {
-  static constexpr int LW = clog2(W), LH = clog2(H), HW = W * H;
-  static constexpr int Q = HW / 4;                   // 4-sample groups a mode
-  static constexpr int QPR = W / 4;                  // ... a row
-  static constexpr int EXT = 2 * (W > H ? W : H) + 4;        // ext capacity
-  static constexpr int SC = (LW + LH - 2) >> 2;      // planar/DC PDPC scale
-};
-
-// PDPC of one angular sample at work position (yy, xx)
-__device__ __forceinline__ int pdpc(const int* r, const int* d, int yy, int xx,
-                                    int v, int max_pix) {
-  const int kind = d[D_PDPC];
-  if (kind == PDPC_GRAD) {
-    if (xx < d[D_PLIM]) {
-      const int wl = 32 >> ((2 * xx) >> d[D_PSCALE]);
-      const int s = r[d[D_SIDE] +
-                      min(yy + ((256 + (xx + 1) * d[D_INV]) >> 9) + 1, uvg::REF_LEN - 1)];
-      v += (wl * (s - v) + 32) >> 6;
-    }
-  } else if (kind == PDPC_HV) {
-    if (xx < d[D_PLIM]) {
-      const int wl = 32 >> ((2 * xx) >> d[D_PSCALE]);
-      v += (wl * (r[d[D_SIDE] + 1 + yy] - r[d[D_MAIN]]) + 32) >> 6;
-    }
-    v = uvg::clampi(v, 0, max_pix);
-  }
-  return v;
-}
-
-__device__ __forceinline__ int4 filter_row(const int4* cub, int filt, int df) {
-  if (filt == FILT_CUBIC) return cub[df];
-  const int f = df >> 1;
-  return make_int4(16 - f, 32 - f, 16 + f, f);
-}
-
-// one angular sample at work position (yy, xx) from the extended reference
-__device__ __forceinline__ int angular(const int* e, const int* d,
-                                       const int4* cub, int yy, int xx,
-                                       int max_pix) {
-  const int dpos = d[D_SD] * (yy + 1);
-  const int p = d[D_BASE] + (dpos >> 5) + xx;
-  if (d[D_FILT] == FILT_INT) return e[p + 1];
-  const int4 wt = filter_row(cub, d[D_FILT], dpos & 31);
-  const int v = (e[p] * wt.x + e[p + 1] * wt.y + e[p + 2] * wt.z + e[p + 3] * wt.w + 32) >> 6;
-  return d[D_CLIP] ? uvg::clampi(v, 0, max_pix) : v;
-}
 
 template <int W, int H>
 __device__ __forceinline__ void planar_dc(const int* r, int mode, int dc, int oy,
@@ -163,7 +96,7 @@ __global__ void __launch_bounds__(THREADS)
     const int mode = modes == nullptr ? m0 + s : uvg::clampi(modes[m0 + s], 0, 66);
     sdesc[s][f] = desc_g[mode * DESC_N + f];
   }
-  if (tid < 32) cub[tid] = make_int4(kCubic[tid][0], kCubic[tid][1], kCubic[tid][2], kCubic[tid][3]);
+  load_cubic(cub, tid);
   __syncthreads();
   if (tid == 0) {
     // DC from the unfiltered references
@@ -179,19 +112,7 @@ __global__ void __launch_bounds__(THREADS)
     const int s = i / G::EXT, p = i % G::EXT;
     const int* d = sdesc[s];
     if (d[D_MODE] < 2 || p >= d[D_EXTN]) continue;
-    const int base = d[D_BASE];
-    int idx;
-    if (d[D_SD] < 0) {
-      if (p >= base) {
-        const int j = p - base;
-        idx = j < d[D_MAINN] ? d[D_MAIN] + j : 0;
-      } else {
-        idx = d[D_SIDE] + min(((base - p) * d[D_INV] + 256) >> 9, base);
-      }
-    } else {
-      idx = d[D_MAIN] + min(p, uvg::REF_LEN - 1);
-    }
-    ext[s][p] = r[idx];
+    ext[s][p] = ext_sample(r, d, p);
   }
   __syncthreads();
   for (int q = tid; q < ns * G::Q; q += THREADS) {
@@ -201,34 +122,8 @@ __global__ void __launch_bounds__(THREADS)
     int v[4];
     if (d[D_MODE] < 2) {
       planar_dc<W, H>(r, d[D_MODE], dc_s, oy, ox, max_pix, v);
-    } else if (d[D_VERT]) {
-      // work row = output row: one deltaInt / deltaFract for the four
-      const int* e = ext[s];
-      const int dpos = d[D_SD] * (oy + 1);
-      const int p = d[D_BASE] + (dpos >> 5) + ox;
-      if (d[D_FILT] == FILT_INT) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = e[p + 1 + j];
-      } else {
-        const int4 wt = filter_row(cub, d[D_FILT], dpos & 31);
-        int t[7];
-#pragma unroll
-        for (int k = 0; k < 7; ++k) t[k] = e[p + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int a = (t[j] * wt.x + t[j + 1] * wt.y + t[j + 2] * wt.z +
-                         t[j + 3] * wt.w + 32) >> 6;
-          v[j] = d[D_CLIP] ? uvg::clampi(a, 0, max_pix) : a;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = pdpc(r, d, oy, ox + j, v[j], max_pix);
     } else {
-      // horizontal: output (oy, ox + j) is work (yy = ox + j, xx = oy)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = pdpc(r, d, ox + j, oy,
-                    angular(ext[s], d, cub, ox + j, oy, max_pix), max_pix);
+      angular_quad(ext[s], r, d, cub, oy, ox, max_pix, v);
     }
     *reinterpret_cast<int4*>(out + static_cast<long long>(m0 + s) * G::HW + oy * W + ox) =
         make_int4(v[0], v[1], v[2], v[3]);

@@ -31,7 +31,8 @@ BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-_HEADERS = ("common.cuh", "butterfly.cuh", "qpel.cuh", "rd_tail.cuh")
+_HEADERS = ("common.cuh", "butterfly.cuh", "qpel.cuh", "rd_tail.cuh",
+            "angular.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -75,9 +76,10 @@ SIGNATURES = {
     # preds (all 49, or the winner's), costs, winner
     "frac_search": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                     _P, _P, _I, _P],
-    # refs, modes, B, R, w, h, max_pix, K, W, pdpc_wl, pdpc_sidx, hv_wl,
-    # hv_sidx, needs_clip, pdpc_on, hv_on, hv_topleft, preds
-    "predict_modes": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 10 + [_P, _P],
+    # refs, modes, B, R, w, h, max_pix, desc (host, compact), ext_max,
+    # n_top, n_left, n_ftop, n_fleft, preds
+    "predict_modes": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+                      _P],
     # stage, B, n1, hw, lam, s1, s2, refine, mode_bits, m1, p1, p2,
     # best_mode, satd_best, extra, pred
     "rough_refine": [_I, _I, _I, _I, _F] + [_P] * 11 + [_P],

@@ -508,8 +508,9 @@ def refs_blocks(src: torch.Tensor, xs, ys, w: int, h: int):
     return refs, blocks
 
 
-# the per-mode tables of the angular modes, in K12b's argument order (K2
-# reads the per-mode descriptors of ops.tables.mode_descriptors instead)
+# the per-sample tables of the angular modes, which predict67_plain cuts to
+# a mode subset (the kernels K2 and K12b read the per-mode descriptors of
+# ops.tables.mode_descriptors instead)
 _ANG_KEYS = ("K", "W", "pdpc_wl", "pdpc_sidx", "hv_wl", "hv_sidx",
              "needs_clip", "pdpc_on", "hv_on", "hv_topleft")
 
@@ -666,13 +667,24 @@ def predict_modes_plain(refs: torch.Tensor, modes: torch.Tensor,
     return out
 
 
+@lru_cache(maxsize=None)
+def compact_desc_host(w: int, h: int) -> np.ndarray:
+    """ops.tables.compact_descriptors(w, h), a contiguous int32 host array
+    built once per class: K12b's C entry passes it to its kernel by
+    value."""
+    from .tables import compact_descriptors
+    return np.ascontiguousarray(compact_descriptors(w, h), dtype=np.int32)
+
+
 def predict_modes(refs: torch.Tensor, modes: torch.Tensor,
                   tables: dict) -> torch.Tensor:
-    """K12b: predict_modes_plain on the CPU, the CUDA kernel on the card."""
+    """K12b: predict_modes_plain on the CPU, the CUDA kernel on the card.
+    The kernel loads only the reference samples ``tables["reach"]`` names
+    (ops.tables.mode_reach) and computes each slot from the descriptor of
+    its clamped mode in that copy (compact_desc_host)."""
     if refs.device.type == "cpu":
         return predict_modes_plain(refs, modes, tables)
-    dev = kernels.check_cuda("predict_modes", refs, modes,
-                             *(tables[k] for k in _ANG_KEYS))
+    dev = kernels.check_cuda("predict_modes", refs, modes)
     _check("predict_modes", refs, torch.int32, 2)
     _check("predict_modes", modes, torch.int32, 2)
     B, R = modes.shape
@@ -683,8 +695,8 @@ def predict_modes(refs: torch.Tensor, modes: torch.Tensor,
     preds = torch.empty((B, R, h, w), dtype=torch.int32, device=dev)
     kernels.launch("predict_modes", dev, refs.data_ptr(), modes.data_ptr(),
                    B, R, w, h, (1 << tables["bitdepth"]) - 1,
-                   *(tables[k].data_ptr() for k in _ANG_KEYS),
-                   preds.data_ptr())
+                   compact_desc_host(w, h).ctypes.data, tables["ext_max"],
+                   *tables["reach"], preds.data_ptr())
     return preds
 
 

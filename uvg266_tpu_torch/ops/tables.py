@@ -60,8 +60,10 @@ NARROW = {"K": np.int16, "W": np.int8, "pdpc_wl": np.int8,
           "mts_w": np.int8, "mts_h": np.int8, "mts_mask": np.int8}
 
 __all__ = ["FAST_COEFF_WTS", "INV_QUANT_SCALES", "MODE_BITS", "MTS_IDX",
-           "QUANT_SCALES", "ROUGH_MODES", "class_tables", "device_mts_tables",
-           "mode_descriptors", "predict67_desc",
+           "QUANT_SCALES", "ROUGH_MODES", "class_tables",
+           "compact_descriptors", "device_mts_tables",
+           "mode_descriptors", "mode_reach", "mode_reads",
+           "predict67_desc", "predict_modes_desc",
            "device_mvd_bits", "device_tables", "frame_tables",
            "frac_penalty", "me_penalties", "mip_matrix", "mip_mode_bits",
            "mts_class_tables", "mvd_bits_table", "rough_modes",
@@ -89,7 +91,8 @@ def mode_descriptors(w: int, h: int) -> tuple[np.ndarray, int]:
         (r[0] beyond), ext[base - i] = r[side + min((i*inv + 256) >> 9, hh)]
         for i in 1..hh;
       else: base = 0, ext[p] = r[main + min(p, REF_LEN - 1)]
-    (build_mode_tables' ext_idx). Row yy takes deltaInt, deltaFract from
+    (build_mode_tables' ext_idx; a tap reads no j >= ww + 2). Row yy takes
+    deltaInt, deltaFract from
     (yy + 1) * sample_disp: an integer slope copies ext[base + deltaInt +
     xx + 1]; a fractional one filters ext[base + deltaInt + xx + t], t < 4,
     with the cubic row CUBIC_FILTER[deltaFract] or the gauss row
@@ -128,7 +131,7 @@ def mode_descriptors(w: int, h: int) -> tuple[np.ndarray, int]:
         lo = min(base + ((sd * (yy + 1)) >> 5) + toff for yy in range(hh))
         hi = max(base + ((sd * (yy + 1)) >> 5) + toff for yy in range(hh)) \
             + ww - 1 + taps - 1
-        if lo < 0 or hi >= ext_len:
+        if lo < 0 or hi >= ext_len or (sd < 0 and hi - base >= ww + 2):
             raise ValueError(f"mode {mode} at {w}x{h}: a tap leaves ext")
         inv = int(MODEDISP2INVSAMPLEDISP[abs(mode_disp)])
         scale = min(2, (log2_h if vertical else log2_w)
@@ -209,59 +212,163 @@ def predict67_desc(refs: torch.Tensor, w: int, h: int, bitdepth: int,
                       + pd_wt[None, :, None] * (tt - v) + 32) >> 6)
             out[:, slot] = v.clamp(0, mx).to(torch.int32)
             continue
-        vert = bool(d[D_VERT])
-        ww, hh = (w, h) if vert else (h, w)
+        out[:, slot] = _angular_desc(r[:, d[D_MAIN]:d[D_MAIN] + L],
+                                     r[:, d[D_SIDE]:d[D_SIDE] + L], d, w, h,
+                                     mx, cub)
+    return out
+
+
+def _angular_desc(main, side, d, w, h, mx, cub):
+    """One angular mode of every block from its descriptor ``d`` (a list of
+    ints), as csrc/angular.cuh computes it: main, side [B, n] the leading
+    samples of the mode's main and side reference sections (r[D_MAIN + i],
+    r[D_SIDE + i]); a read past n raises. -> [B, h, w] int32."""
+    L = REF_LEN
+    vert = bool(d[D_VERT])
+    ww, hh = (w, h) if vert else (h, w)
+    base, sd, inv = d[D_BASE], d[D_SD], d[D_INV]
+    dev = main.device
+    # the extended main reference of every block
+    p = torch.arange(d[D_EXTN], device=dev)
+    if sd < 0:
+        j = p - base
+        # j < D_MAINN wherever a tap reads (mode_descriptors' extent)
+        jj = torch.where(p >= base, j, torch.zeros_like(j))
+        side_i = torch.clamp(((base - p) * inv + 256) >> 9, max=hh)
+        side_i = torch.where(p >= base, torch.zeros_like(p), side_i)
+        ext = torch.where((p >= base)[None], main[:, jj], side[:, side_i])
+    else:
+        ext = main[:, p.clamp(max=L - 1)]                 # [B, EXTN]
+    yy = torch.arange(hh, device=dev)[:, None]        # work rows
+    xx = torch.arange(ww, device=dev)[None, :]        # work columns
+    dpos = sd * (yy + 1)
+    d_int, d_fr = dpos >> 5, dpos & 31
+    if d[D_FILT] == FILT_INT:
+        v = ext[:, base + d_int + xx + 1]
+    else:
+        if d[D_FILT] == FILT_CUBIC:
+            wt = cub[d_fr[:, 0]]                       # [hh, 4]
+        else:
+            f = d_fr[:, 0] >> 1
+            wt = torch.stack([16 - f, 32 - f, 16 + f, f], dim=1)
+        p0 = base + d_int + xx
+        v = sum(ext[:, p0 + t] * wt[None, :, t:t + 1] for t in range(4))
+        v = (v + 32) >> 6
+        if d[D_CLIP]:
+            v = v.clamp(0, mx)
+    if d[D_PDPC] != PDPC_NONE:
+        wl = torch.where(xx < d[D_PLIM], 32 >> ((2 * xx) >> d[D_PSCALE]),
+                         torch.zeros_like(xx))
+        if d[D_PDPC] == PDPC_GRAD:
+            # only the columns xx < D_PLIM read the side reference
+            sidx = torch.clamp(yy + ((256 + (xx[:, :d[D_PLIM]] + 1) * inv)
+                                     >> 9) + 1, max=L - 1)
+            s = torch.zeros_like(v)
+            s[:, :, :d[D_PLIM]] = side[:, sidx]
+            v = v + ((wl * (s - v) + 32) >> 6)
+        else:
+            s = side[:, 1 + yy]
+            tl = main[:, 0][:, None, None]
+            v = (v + ((wl * (s - tl) + 32) >> 6)).clamp(0, mx)
+    return (v if vert else v.transpose(1, 2)).to(torch.int32)
+
+
+def mode_reads(w: int, h: int) -> np.ndarray:
+    """bool [67, 4*REF_LEN]: the reference samples each angular mode of a
+    w x h block reads as K2 and K12b compute it (mode_descriptors): its
+    extended main reference, p < D_EXTN, and its PDPC side samples (hor/ver
+    PDPC: r[side + 1 + yy] and the top-left r[main]). Rows 0 and 1 (planar,
+    DC) are empty."""
+    desc, _ext_max = mode_descriptors(w, h)
+    L = REF_LEN
+    reads = np.zeros((NUM_MODES, 4 * L), dtype=bool)
+    for mode in range(2, NUM_MODES):
+        d = [int(v) for v in desc[mode]]
+        hh = h if d[D_VERT] else w
         base, sd, inv = d[D_BASE], d[D_SD], d[D_INV]
-        # the extended main reference of every block
-        p = torch.arange(d[D_EXTN], device=dev)
+        main, side = d[D_MAIN], d[D_SIDE]
+        p = np.arange(d[D_EXTN])
         if sd < 0:
-            j = p - base
-            idx = torch.where(j < d[D_MAINN], d[D_MAIN] + j,
-                              torch.zeros_like(j))
-            side = d[D_SIDE] + torch.clamp(((base - p) * inv + 256) >> 9,
-                                           max=hh)
-            idx = torch.where(p >= base, idx, side)
+            idx = np.where(p >= base, main + p - base,
+                           side + np.minimum(((base - p) * inv + 256) >> 9,
+                                             hh))
         else:
-            idx = d[D_MAIN] + p.clamp(max=L - 1)
-        ext = r[:, idx]                                   # [B, EXTN]
-        yy = torch.arange(hh, device=dev)[:, None]        # work rows
-        xx = torch.arange(ww, device=dev)[None, :]        # work columns
-        dpos = sd * (yy + 1)
-        d_int, d_fr = dpos >> 5, dpos & 31
-        if d[D_FILT] == FILT_INT:
-            v = ext[:, base + d_int + xx + 1]
-        else:
-            if d[D_FILT] == FILT_CUBIC:
-                wt = cub[d_fr[:, 0]]                       # [hh, 4]
-            else:
-                f = d_fr[:, 0] >> 1
-                wt = torch.stack([16 - f, 32 - f, 16 + f, f], dim=1)
-            p0 = base + d_int + xx
-            v = sum(ext[:, p0 + t] * wt[None, :, t:t + 1] for t in range(4))
-            v = (v + 32) >> 6
-            if d[D_CLIP]:
-                v = v.clamp(0, mx)
-        if d[D_PDPC] != PDPC_NONE:
-            wl = torch.where(xx < d[D_PLIM], 32 >> ((2 * xx) >> d[D_PSCALE]),
-                             torch.zeros_like(xx))
-            if d[D_PDPC] == PDPC_GRAD:
-                sidx = d[D_SIDE] + torch.clamp(
-                    yy + ((256 + (xx + 1) * inv) >> 9) + 1, max=L - 1)
-                v = v + ((wl * (r[:, sidx] - v) + 32) >> 6)
-            else:
-                side = r[:, d[D_SIDE] + 1 + yy]
-                tl = r[:, d[D_MAIN]][:, None, None]
-                v = (v + ((wl * (side - tl) + 32) >> 6)).clamp(0, mx)
-        out[:, slot] = (v if vert else v.transpose(1, 2)).to(torch.int32)
+            idx = main + np.minimum(p, L - 1)
+        row = reads[mode]
+        row[idx] = True
+        yy = np.arange(hh)[:, None]
+        xx = np.arange(d[D_PLIM])[None, :]
+        if d[D_PDPC] == PDPC_GRAD:
+            row[side + np.minimum(yy + ((256 + (xx + 1) * inv) >> 9) + 1,
+                                  L - 1)] = True
+        elif d[D_PDPC] == PDPC_HV:
+            row[side + 1 + yy] = True
+            row[main] = True
+    return reads
+
+
+def mode_reach(w: int, h: int) -> tuple:
+    """(n_top, n_left, n_ftop, n_fleft): the leading samples of each
+    reference section that the angular modes 2..66 of a w x h block read
+    (mode_reads), the part of a block's 4*REF_LEN references K12b loads."""
+    used = mode_reads(w, h).any(axis=0).reshape(4, REF_LEN)
+    return tuple(int(np.nonzero(u)[0][-1]) + 1 if u.any() else 0
+                 for u in used)
+
+
+def compact_descriptors(w: int, h: int) -> np.ndarray:
+    """mode_descriptors(w, h)[0] as K12b reads it: the main and side
+    sections (D_MAIN, D_SIDE: k * REF_LEN) turned into their offsets in
+    its compact copy of a block's references, the leading mode_reach(w, h)
+    samples of each section one after the other (the top section, and so
+    r[0], still at 0)."""
+    desc = mode_descriptors(w, h)[0].copy()
+    off = np.concatenate([[0], np.cumsum(mode_reach(w, h))[:3]])
+    for f in (D_MAIN, D_SIDE):
+        desc[:, f] = off[desc[:, f] // REF_LEN]
+    return desc
+
+
+def predict_modes_desc(refs: torch.Tensor, modes: torch.Tensor, w: int,
+                       h: int, bitdepth: int) -> torch.Tensor:
+    """K12b's route in plain PyTorch, for the tests: refs [B, 4*REF_LEN],
+    modes [B, R] int32 -> [B, R, h, w] int32, computed as
+    csrc/predict_modes.cu computes it: each mode clamped to [2, 66], the
+    block's references cut to the leading samples of each section that the
+    angular modes reach (mode_reach; a read past them raises), each slot's
+    prediction from its mode's descriptor in that copy
+    (compact_descriptors), duplicates computed per slot. Equal to
+    ops.intra_batch.predict_modes_plain."""
+    desc = compact_descriptors(w, h)
+    reach = mode_reach(w, h)
+    L = REF_LEN
+    r = refs.long()
+    rc = torch.cat([r[:, s * L:s * L + n] for s, n in enumerate(reach)], 1)
+    # the sections' ends in the copy, after each one's offset
+    end = dict(zip(np.cumsum([0, *reach[:3]]).tolist(), np.cumsum(reach)))
+    dev = refs.device
+    cub = torch.from_numpy(np.asarray(CUBIC_FILTER, dtype=np.int64)).to(dev)
+    ml = modes.long().clamp(2, NUM_MODES - 1)
+    B, R = ml.shape
+    out = torch.empty((B, R, h, w), dtype=torch.int32, device=dev)
+    for mode in torch.unique(ml).tolist():
+        d = [int(v) for v in desc[mode]]
+        pred = _angular_desc(rc[:, d[D_MAIN]:end[d[D_MAIN]]],
+                             rc[:, d[D_SIDE]:end[d[D_SIDE]]], d, w, h,
+                             (1 << bitdepth) - 1, cub)
+        bi, ji = (ml == mode).nonzero(as_tuple=True)
+        out[bi, ji] = pred[bi]
     return out
 
 
 def class_tables(w: int, h: int, bitdepth: int) -> dict:
     """numpy tables of one luma size class: build_mode_tables, the K2 mode
-    descriptors (``desc``, ``ext_max``: mode_descriptors) and the DCT2
+    descriptors (``desc``, ``ext_max``: mode_descriptors), the reference
+    samples K12b loads (``reach``: mode_reach) and the DCT2
     matrices of its width (mat_w) and height (mat_h)."""
     t = dict(build_mode_tables(w, h, bitdepth, False))
     t["desc"], t["ext_max"] = mode_descriptors(w, h)
+    t["reach"] = mode_reach(w, h)
     t["mat_w"] = get_matrix(DCT2, w)
     t["mat_h"] = get_matrix(DCT2, h)
     return t
