@@ -61,9 +61,15 @@ Phases, one line each (or a few), any failure exits non-zero:
      order (and on all-max 10-bit planes at every class, 64x64 included),
      K2 over the 35 stage-1 modes, K12b predict_modes (the refine lists,
      random lists, and lists with repeated modes and modes outside [2, 66],
-     which clamp) and the K12c rough_refine chain at every class of the
-     rough path: all outputs equal, tolerance 0. K9a and both K9b forms are also
-     timed on a CUDA graph of 20 calls, beside the earlier designs' times;
+     which clamp), the K12c rough_refine chain and its two selection
+     stages alone at every class of the rough path, and the two stages on
+     crafted ties (rough_stage_cases: all SATDs equal, the minimum at each
+     slot, i1 and i2 tied, refine slots tied with stage-1 slots, refine
+     lists at 2 and 66; the real and flat mode bits; B = 1, 37 and 6240;
+     stage 2 at each class's h*w on numbered predictions): all outputs
+     equal, tolerance 0. K9a, both K9b forms, the K12c chain and its two
+     stages are also timed on a CUDA graph of 20 calls, beside the earlier
+     designs' times;
   4d. the batched transforms and quantisers, whose only callers are their
      users (no encode path reaches them, as in the reference): K13
      fwd_transform / inv_transform and K14 quant_levels / dequant_levels
@@ -180,7 +186,8 @@ INTRA_KERNELS = ("refs_blocks_grid", "predict67", "satd67", "rd_cost")
 GRAPH_KERNELS = INTRA_KERNELS + ("fullpel_search", "frac_search", "mip_preds",
                                  "mts_search", "frame_inter", "leaf_qpel",
                                  "rd_cost_pred", "refs_blocks",
-                                 "predict_modes", "pseudo_recon")
+                                 "predict_modes", "pseudo_recon",
+                                 "rough_refine")
 TR_KERNELS = ("fwd_transform", "inv_transform", "quant_levels",
               "dequant_levels")
 TR_QPS = (0, 22, 27, 37)      # qp_scaled of phase 4d, and the largest
@@ -222,6 +229,11 @@ EARLIER_MS = {("predict67", 64): 0.1222, ("predict67", 32): 0.1266,
               ("pseudo_recon", 16): 0.0099}
 # K5 before its redesign at 1920x1088, 8 bits, as above
 K5_BEFORE_MS = {"1920x1088": 0.0452}
+# K12c's selection stages before their redesign (a thread a block; a thread
+# block a block whose first thread scans the costs), device ms a rough
+# 832x480 frame on a CUDA graph, tools/k12b_k5_times.py on an NVIDIA H100
+# 80GB HBM3 at 700.00 W
+K12C_BEFORE_MS = {"rough_select": 0.0222, "rough_pick": 0.0443}
 # K9a and K9b before their redesign (a thread per offset; a thread block
 # per block and offset), ms per reference at 10 bits (16x16 + 8x8), CUDA
 # events, this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md)
@@ -701,6 +713,57 @@ def ref_samples(reads, modes) -> int:
     its modes' rows of reads (ops.tables.mode_reads, bool [67, 780])."""
     m = np.clip(modes.cpu().numpy(), 2, 66)
     return int(reads[m].any(axis=1).sum())
+
+
+def rough_stage_cases(B: int, seed: int = 0):
+    """Inputs of K12c's two selection stages, for B blocks, with ties:
+    [(tag, s1 [B, 35], s2 [B, 4], refine [B, 4] or None)] int32 numpy
+    arrays (refine None: stage 1's list of s1). Under flat mode bits equal
+    SATDs are equal costs; the callers also run the real bits. The cases:
+    all 39 SATDs equal; the minimum at each slot j (stage 1 reads j =
+    2..34, j = 34 the lane with two costs; stage 2 all 39, 35..38 the refine
+    slots); i1 and i2 tied (two equal minima, the second later); a refine
+    slot tied with a stage-1 slot, and two refine slots tied; refine lists
+    at 2 and at 66; random SATDs with many repeats and wide ones."""
+    rng = np.random.default_rng(seed)
+    rows = np.arange(B)
+
+    def hi(*shape):
+        return rng.integers(1000, 2000, shape)
+
+    cases = [("all equal", np.full((B, 35), 500), np.full((B, 4), 500),
+              None)]
+    for j in range(39):
+        s1, s2 = hi(B, 35), hi(B, 4)
+        if j < 35:
+            s1[:, j] = 10
+        else:
+            s2[:, j - 35] = 10
+        cases.append((f"min at {j}", s1, s2, None))
+    s1 = hi(B, 35)
+    p = rng.integers(2, 34, B)
+    s1[rows, p] = s1[rows, rng.integers(p + 1, 35)] = 10
+    cases.append(("i1 and i2 tied", s1, hi(B, 4), None))
+    s1, s2 = hi(B, 35), hi(B, 4)
+    s1[rows, rng.integers(0, 35, B)] = 10
+    s2[rows, rng.integers(0, 4, B)] = 10
+    cases.append(("refine slot tied with a stage-1 slot", s1, s2, None))
+    s2 = hi(B, 4)
+    r = rng.integers(0, 3, B)
+    s2[rows, r] = s2[rows, rng.integers(r + 1, 4)] = 10
+    cases.append(("two refine slots tied", hi(B, 35), s2, None))
+    s2 = hi(B, 4)
+    s2[rows, rng.integers(0, 4, B)] = 10
+    ends = np.tile(np.array([2, 66, 2, 66]), (B, 1))
+    ends[1::2] = (2, 3, 65, 66)
+    cases.append(("refine lists at 2 and 66", hi(B, 35), s2, ends))
+    cases.append(("random, repeats", rng.integers(0, 4, (B, 35)),
+                  rng.integers(0, 4, (B, 4)), None))
+    cases.append(("random, wide", rng.integers(0, 1 << 20, (B, 35)),
+                  rng.integers(0, 1 << 20, (B, 4)), None))
+    return [(t, a.astype(np.int32), b.astype(np.int32),
+             None if c is None else c.astype(np.int32))
+            for (t, a, b, c) in cases]
 
 
 def fwd_f64(torch, x, mw, mh, s1, s2, keep_w, keep_h):
@@ -1511,8 +1574,12 @@ def main() -> int:
     # the rough search at every class of the rough path
     m1 = rough_modes("cuda")
     rcfg = rough_config(Config)
-    for (w, h, pos) in search_classes(PartitionSearch(EncoderControl(rcfg),
-                                                      rcfg, qp=QP)):
+    rough_cls = search_classes(PartitionSearch(EncoderControl(rcfg), rcfg,
+                                               qp=QP))
+    rough_shapes = [(w, h) for (w, h, _p) in rough_cls]
+    k12c_stages = {st: {"device_ms": 0.0, "bound_ms": 0.0}
+                   for st in ("rough_select", "rough_pick")}
+    for (w, h, pos) in rough_cls:
         B = len(pos)
         xs = np.array([p[0] for p in pos], dtype=np.int32)
         ys = np.array([p[1] for p in pos], dtype=np.int32)
@@ -1551,6 +1618,15 @@ def main() -> int:
                     same("predict_modes", f"{what} {ltag}",
                          ib.predict_modes(refs, ml, tabs),
                          ib.predict_modes_plain(refs, ml, tabs))
+                # stage 2 alone on the class's predictions and SATDs
+                p2 = ib.predict_modes(refs, refine, tabs)
+                pk = (s1, ib.satd67(p2, blocks), refine, lam,
+                      ft["mode_bits"], m1, p1, p2)
+                for o, a, b in zip(("best_mode", "satd_best", "extra",
+                                    "pred"), rc.rough_pick(*pk),
+                                   rc.rough_pick_plain(*pk)):
+                    same("rough_refine", f"{what} pick {o}", a, b)
+                del p2, pk
         # times at the frame's inputs (8 bits, QP22), once per class
         tabs = device_tables(w, h, 8, "cuda")
         ft = frame_tables(QP, "cuda")
@@ -1567,7 +1643,53 @@ def main() -> int:
               R=4, **shape)
         timed("rough_refine", lambda: rc.rough_refine(*r_args),
               lambda: rc.rough_refine_plain(*r_args), f"{w}x{h}", **shape)
-        del refs, blocks, refine, r_args, p1, s1
+        # the two selection stages alone on the graph
+        p1 = ib.predict67(refs, tabs, m1)
+        s1 = ib.satd67(p1, blocks)
+        p2 = ib.predict_modes(refs, refine, tabs)
+        pk = (s1, ib.satd67(p2, blocks), refine, lam, ft["mode_bits"], m1,
+              p1, p2)
+        for st, fn in (("rough_select", lambda: rc.rough_select(
+                s1, lam, ft["mode_bits"], m1)),
+                       ("rough_pick", lambda: rc.rough_pick(*pk))):
+            b, o = work(st, B, w, h, H, W)
+            k12c_stages[st]["device_ms"] += graph_ms(torch, fn, 20)
+            k12c_stages[st]["bound_ms"] += max(b / HBM_BYTES_PER_S,
+                                               o / OPS_PER_S) * 1e3
+        del refs, blocks, refine, r_args, p1, s1, p2, pk
+    print("  K12c stages a frame on the graph (ms): " + ", ".join(
+        f"{st} {v['device_ms']:.4f} (bound {v['bound_ms']:.4f}, earlier "
+        f"design {K12C_BEFORE_MS[st]:.4f})" for st, v in k12c_stages.items()),
+        flush=True)
+    # the two stages alone on crafted ties (rough_stage_cases), B = 1, 37
+    # and 6240, the real and flat mode bits: stage 1, then stage 2 at each
+    # rough class's h*w on numbered predictions (a wrong gather shows)
+    lam = float(np.float32(qp_to_lambda(QP)))
+    bits = {"bits": frame_tables(QP, "cuda")["mode_bits"],
+            "flat bits": torch.ones(67, device=dev)}
+    for Bc in (1, 37, 6240):
+        cases = []
+        for tag, *arrs in rough_stage_cases(Bc, seed=Bc):
+            s1, s2, refine = (None if a is None else
+                              torch.from_numpy(a).to(dev) for a in arrs)
+            for btag, mb in bits.items():
+                what = f"B={Bc} {tag} {btag}"
+                got = rc.rough_select(s1, lam, mb, m1)
+                same("rough_refine", f"{what} select", got,
+                     rc.rough_select_plain(s1, lam, mb, m1))
+                cases.append((what, (s1, s2, got if refine is None else
+                                     refine, lam, mb, m1)))
+        for (w, h) in rough_shapes:
+            p1 = torch.arange(Bc * 35 * h * w, dtype=torch.int32,
+                              device=dev).view(Bc, 35, h, w)
+            p2 = -1 - torch.arange(Bc * 4 * h * w, dtype=torch.int32,
+                                   device=dev).view(Bc, 4, h, w)
+            for what, pk in cases:
+                for o, a, b in zip(("best_mode", "satd_best", "extra",
+                                    "pred"), rc.rough_pick(*pk, p1, p2),
+                                   rc.rough_pick_plain(*pk, p1, p2)):
+                    same("rough_refine", f"{w}x{h} {what} pick {o}", a, b)
+            del p1, p2
     print(f"phase 4c per-class inter and rough kernels: {checks - n0} "
           "comparisons, all equal", flush=True)
 
@@ -2094,6 +2216,9 @@ def main() -> int:
         if name == "frac_search":
             # the row is the winner form's (the one the path launches)
             rows[-1]["contract_form"] = dict(frac_contract)
+        if name == "rough_refine":
+            # the row is the chain's; its two selection stages alone
+            rows[-1]["stages"] = k12c_stages
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -789,3 +789,53 @@ def test_redesigned_k12b_k5_equal_plain(card, kind, a, b):
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before
             if kernels.LAUNCHES[k] != before[k]} == {
         k: v for k, v in n.items() if v}
+
+
+@pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (32, 16),
+                                 (64, 64)])
+def test_redesigned_k12c_stages_equal_plain(card, w, h):
+    """K12c's two selection stages alone (a warp per block, the first
+    minimum of the key (cost, index) by shuffles; stage 2 copies the winner
+    as int4, h*w / 512 warps sharing a block above 512 samples) against
+    rough_select_plain and rough_pick_plain on chip_smoke.py's crafted
+    ties (rough_stage_cases: all SATDs equal, the minimum at each slot, i1
+    and i2 tied, refine slots tied with stage-1 slots and with each other,
+    refine lists at 2 and 66, random SATDs), with the real and flat mode
+    bits, at B = 1, 37 and 6240; stage 2 on numbered predictions at the
+    (w, h) of test_rough_kernels_equal_plain. Every output equal, one
+    launch a stage; stage 2 refuses predictions that are not 16-byte
+    aligned."""
+    from chip_smoke import rough_stage_cases
+    m1 = tb.rough_modes("cuda")
+    bits = (tb.frame_tables(22, "cuda")["mode_bits"],
+            torch.ones(67, device=card))
+    n = 0
+    before = dict(kernels.LAUNCHES)
+    for B in (1, 37, 6240):
+        p1 = torch.arange(B * 35 * h * w, dtype=torch.int32,
+                          device=card).view(B, 35, h, w)
+        p2 = -1 - torch.arange(B * 4 * h * w, dtype=torch.int32,
+                               device=card).view(B, 4, h, w)
+        for _tag, s1, s2, refine in rough_stage_cases(B, seed=B + w * h):
+            s1, s2 = _t(s1, card), _t(s2, card)
+            for mb in bits:
+                got = rd.rough_select(s1, 57.9, mb, m1)
+                want = rd.rough_select_plain(s1, 57.9, mb, m1)
+                assert got.dtype == want.dtype and torch.equal(got, want)
+                pk = (s1, s2, got if refine is None else _t(refine, card),
+                      57.9, mb, m1, p1, p2)
+                for a, b in zip(rd.rough_pick(*pk), rd.rough_pick_plain(*pk)):
+                    assert a.dtype == b.dtype and torch.equal(a, b)
+                n += 2
+        del p1, p2
+    flat = torch.zeros(35 * h * w + 1, dtype=torch.int32, device=card)
+    s1 = torch.zeros((1, 35), dtype=torch.int32, device=card)
+    s2 = torch.zeros((1, 4), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rd.rough_pick(s1, s2, s2 + 2, 57.9, bits[0], m1,
+                      flat[1:].view(1, 35, h, w),
+                      torch.zeros((1, 4, h, w), dtype=torch.int32,
+                                  device=card))
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {"rough_refine": n}

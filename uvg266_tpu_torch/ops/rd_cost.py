@@ -21,7 +21,9 @@ RD tail (_rd_tail_plain); K4 and K6 share its device code
 emulate (tests/test_torch_rd_tail_design.py). K12c ``rough_refine`` (the reference's make_rough_refine_fn, the rough
 intra search) is a chain: K2 over the 35 stage-1 modes, K3, the stage-1
 selection (csrc/rough_refine.cu), K12b over the 4 refine modes, K3, the
-stage-2 selection (the same source), K6 on the winner.
+stage-2 selection (the same source), K6 on the winner. rough_select_sep
+and rough_pick_sep emulate the two selections' warp layout and shuffle
+tree (tests/test_torch_rough_select_design.py).
 
 Both versions compute in int32 where the reference does (x64 off: its
 int64 casts are int32), wrapping on overflow as it does. The bits estimate
@@ -521,6 +523,87 @@ def rough_pick_plain(s1, s2, refine, lam: float, mode_bits, m1, p1, p2):
     return best_mode, satd_best, mode_bits[best_mode.long()], pred
 
 
+_LANES = torch.arange(32)
+_NONE = 2 ** 31 - 1                   # the index of a lane with no slot
+
+
+def _lane_min(c):
+    """Costs c [B, n] (n <= 64) laid on a warp as the kernels lay them:
+    lane l holds slots l and l + 32 and keeps the first of its two minima
+    -> (cost, slot) [B, 32]; a lane with no slot holds (+inf, 2^31 - 1)."""
+    B, n = c.shape
+    cc = torch.full((B, 64), float("inf"), dtype=torch.float32)
+    cc[:, :n] = c
+    ii = torch.full((B, 64), _NONE, dtype=torch.int64)
+    ii[:, :n] = torch.arange(n)
+    hi = cc[:, 32:] < cc[:, :32]
+    return (torch.where(hi, cc[:, 32:], cc[:, :32]),
+            torch.where(hi, ii[:, 32:], ii[:, :32]))
+
+
+def _warp_argmin(c, i):
+    """The kernels' warp_argmin on lane values c, i [B, 32]: at each of the
+    five __shfl_xor_sync steps (16, 8, 4, 2, 1) lane l takes lane l ^ o's
+    key where it is smaller (the cost, then the index) -> every lane's key
+    after the last step."""
+    for o in (16, 8, 4, 2, 1):
+        oc, oi = c[:, _LANES ^ o], i[:, _LANES ^ o]
+        take = (oc < c) | ((oc == c) & (oi < i))
+        c, i = torch.where(take, oc, c), torch.where(take, oi, i)
+    return c, i
+
+
+def _warp_first_min(c, what: str):
+    """The first minimum of each row of c [B, n] as a block's warp finds
+    it (_lane_min, then _warp_argmin); raises if the lanes disagree."""
+    _c, i = _warp_argmin(*_lane_min(c))
+    if not (i == i[:, :1]).all():
+        raise AssertionError(f"{what}: the lanes disagree on the minimum")
+    return i[:, 0]
+
+
+def rough_select_sep(s1, lam: float, mode_bits, m1):
+    """K12c stage 1 as csrc/rough_refine.cu computes it (CPU tensors): lane
+    l of a block's warp holds the angular costs j = 2 + l and 34 + l, a
+    warp argmin gives i1 (every lane must agree), the lane holding i1 adds
+    1e30 to that cost, a second warp argmin gives i2, lane 0 writes the
+    clipped refine list. Equal to rough_select_plain."""
+    lam32 = torch.tensor(np.float32(lam))
+    ang = _rough_costs(s1, lam32, mode_bits, m1)[:, 2:]
+    i1 = _warp_first_min(ang, "rough_select_sep i1")
+    rows = torch.arange(ang.shape[0])
+    masked = ang.clone()
+    masked[rows, i1] = ang[rows, i1] + np.float32(1e30)
+    i2 = _warp_first_min(masked, "rough_select_sep i2")
+    a1, a2 = 2 + 2 * i1, 2 + 2 * i2
+    return torch.stack([a1 - 1, a1 + 1, a2 - 1, a2 + 1], dim=1) \
+        .clamp(2, 66).to(torch.int32)
+
+
+def rough_pick_sep(s1, s2, refine, lam: float, mode_bits, m1, p1, p2):
+    """K12c stage 2 as csrc/rough_refine.cu computes it (CPU tensors): lane
+    l holds slots j = l and l + 32 of the 39 costs (the stage-1 slots, then
+    the refine slots, whose mode index is clamped to [0, 66]), a warp
+    argmin gives k, the lane holding slot k (lane k % 32, its slot k // 32)
+    gives best_mode, satd_best and extra, and the winner is copied four
+    samples at a time. Equal to rough_pick_plain."""
+    B, n1 = s1.shape
+    h, w = p1.shape[2:]
+    lam32 = torch.tensor(np.float32(lam))
+    modes = torch.cat([m1[None].expand(B, n1), refine.clamp(0, 66)], dim=1)
+    sat = torch.cat([s1, s2], dim=1)
+    k = _warp_first_min(_rough_costs(sat, lam32, mode_bits, modes),
+                        "rough_pick_sep k")
+    rows = torch.arange(B)
+    best_mode = modes[rows, k]                  # lane k % 32's slot k // 32
+    q1 = p1.reshape(B, n1, h * w // 4, 4)
+    q2 = p2.reshape(B, 4, h * w // 4, 4)
+    pred = torch.where((k < n1)[:, None, None], q1[rows, k.clamp(max=n1 - 1)],
+                       q2[rows, (k - n1).clamp(min=0)])
+    return (best_mode, sat[rows, k], mode_bits[best_mode.long()],
+            pred.reshape(B, h, w))
+
+
 def _rough_stage(stage: int, s1, lam: float, mode_bits, m1, s2=None,
                  refine=None, p1=None, p2=None):
     """Launch stage 1 or 2 of csrc/rough_refine.cu (K12c's selections)."""
@@ -546,6 +629,10 @@ def _rough_stage(stage: int, s1, lam: float, mode_bits, m1, s2=None,
             or any(t.dtype != torch.int32 for t in (s2, refine, p1, p2))):
         raise ValueError("rough_refine: expects int32 s2, refine [B, 4], "
                          "p1 [B, n1, h, w], p2 [B, 4, h, w]")
+    if p1.data_ptr() % 16 or p2.data_ptr() % 16:
+        raise ValueError("rough_refine: p1 and p2 must be 16-byte aligned "
+                         "(the kernel copies the winner four samples at a "
+                         "time)")
     best_mode = torch.empty((B,), dtype=torch.int32, device=dev)
     satd_best = torch.empty((B,), dtype=torch.int32, device=dev)
     extra = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -575,7 +662,7 @@ def rough_pick(s1, s2, refine, lam: float, mode_bits, m1, p1, p2):
 
 def _rough_chain(refs, src, qp: int, lam: float, wts, mode_bits,
                  tables: dict, bitdepth: int, is_intra_slice: bool, m1,
-                 plain: bool):
+                 plain: bool, sep: bool = False):
     from .intra_batch import (predict67, predict67_plain, predict_modes,
                               predict_modes_plain, satd67, satd67_plain)
     if plain:
@@ -583,6 +670,8 @@ def _rough_chain(refs, src, qp: int, lam: float, wts, mode_bits,
             satd67_plain
         select, pick, rdp = rough_select_plain, rough_pick_plain, \
             rd_cost_pred_plain
+        if sep:
+            select, pick = rough_select_sep, rough_pick_sep
     else:
         pred67, predm, satd = predict67, predict_modes, satd67
         select, pick, rdp = rough_select, rough_pick, rd_cost_pred
@@ -607,6 +696,15 @@ def rough_refine_plain(refs, src, qp: int, lam: float, wts, mode_bits,
     rd [B] float32, satd_best [B] int32): the chain of plain versions."""
     return _rough_chain(refs, src, qp, lam, wts, mode_bits, tables,
                         bitdepth, is_intra_slice, m1, True)
+
+
+def rough_refine_sep(refs, src, qp: int, lam: float, wts, mode_bits,
+                     tables: dict, bitdepth: int, m1,
+                     is_intra_slice: bool = True):
+    """rough_refine_plain with the two selections' emulations
+    (rough_select_sep, rough_pick_sep) in place of their plain versions."""
+    return _rough_chain(refs, src, qp, lam, wts, mode_bits, tables,
+                        bitdepth, is_intra_slice, m1, True, sep=True)
 
 
 def rough_refine(refs, src, qp: int, lam: float, wts, mode_bits,
