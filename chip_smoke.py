@@ -75,11 +75,17 @@ Phases, one line each (or a few), any failure exits non-zero:
      fwd_transform / inv_transform and K14 quant_levels / dequant_levels
      at the four all-intra classes (DCT2, 8 and 10 bits), every MTS pair up
      to 32x32 and the rectangular 32x8 and 8x32, on the frame's residuals,
-     random residuals and int16-range inputs, the quantisers at qp_scaled
-     0, 22, 27, 37 and the largest and on the int32 wrap edges: all outputs
-     equal, dtypes included, tolerance 0. K13 also against the same
+     random residuals, int16-range inputs and the int32 extremes (random
+     int32, a checkerboard of INT32_MAX and INT32_MIN), the quantisers at
+     qp_scaled 0, 22, 27, 37 and the largest, on the int32 wrap edges, on
+     K13's int16 coefficients as they are and on int16 and int32 views at
+     an element offset of 1, 2 and 4; K13 also at every (w, h) in
+     {4..64}^2 and at the generic shapes (a dimension of 1 or 2, 10 bits),
+     K14 on 86-element tensors (not a multiple of 8): all outputs equal,
+     dtypes included, tolerance 0. K13 also against the same
      function as two float64 torch.matmul calls and the steps between them
-     (its "library" time, a chain of calls), equal on the frame's inputs.
+     (its "library" time, a chain of calls), equal on the frame's inputs;
+     all four timed on a CUDA graph too, beside their first designs'.
      Then the slice's own path: a round trip of the frame's residuals
      through fwd_batch, quant_batch, dequant_batch and inv_batch per class,
      one launch of each kernel per class, the output equal to the numpy
@@ -187,7 +193,9 @@ GRAPH_KERNELS = INTRA_KERNELS + ("fullpel_search", "frac_search", "mip_preds",
                                  "mts_search", "frame_inter", "leaf_qpel",
                                  "rd_cost_pred", "refs_blocks",
                                  "predict_modes", "pseudo_recon",
-                                 "rough_refine")
+                                 "rough_refine", "fwd_transform",
+                                 "inv_transform", "quant_levels",
+                                 "dequant_levels")
 TR_KERNELS = ("fwd_transform", "inv_transform", "quant_levels",
               "dequant_levels")
 TR_QPS = (0, 22, 27, 37)      # qp_scaled of phase 4d, and the largest
@@ -226,7 +234,23 @@ EARLIER_MS = {("predict67", 64): 0.1222, ("predict67", 32): 0.1266,
               # before their redesign)
               ("predict_modes", 64): 0.0246, ("predict_modes", 32): 0.0101,
               ("predict_modes", 16): 0.0096, ("predict_modes", 8): 0.0143,
-              ("pseudo_recon", 16): 0.0099}
+              ("pseudo_recon", 16): 0.0099,
+              # K13 and K14 as first written (a thread block of 256 per
+              # transform block, plain products, int32 intermediates; a
+              # thread per element, int32 only: the wrapper converted K13's
+              # int16 coefficients first) per all-intra class on the
+              # frame's residuals, the wrappers on a CUDA graph
+              # (tools/k12c_times.py on the tree before their redesign)
+              ("fwd_transform", 64): 0.0268, ("fwd_transform", 32): 0.0115,
+              ("fwd_transform", 16): 0.0082, ("fwd_transform", 8): 0.0067,
+              ("inv_transform", 64): 0.0336, ("inv_transform", 32): 0.0115,
+              ("inv_transform", 16): 0.0079, ("inv_transform", 8): 0.0065,
+              ("quant_levels", 64): 0.0050, ("quant_levels", 32): 0.0050,
+              ("quant_levels", 16): 0.0051, ("quant_levels", 8): 0.0051,
+              ("dequant_levels", 64): 0.0028,
+              ("dequant_levels", 32): 0.0028,
+              ("dequant_levels", 16): 0.0028,
+              ("dequant_levels", 8): 0.0028}
 # K5 before its redesign at 1920x1088, 8 bits, as above
 K5_BEFORE_MS = {"1920x1088": 0.0452}
 # K12c's selection stages before their redesign (a thread a block; a thread
@@ -646,12 +670,13 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
         return (B * hw * 6 + w * w + h * h,
                 B * (h * dct_ops(w) + w * dct_ops(h)))
     if name == "quant_levels":
-        # an int32 in and out per element; |c|, a multiply-add, a shift,
-        # the sign and a clip at both ends
-        return B * hw * 8, B * hw * 7
+        # an element of the caller's type in (in_bytes: 2 for K13's int16
+        # coefficients, which the kernel reads in place), an int32 out;
+        # |c|, a multiply-add, a shift, the sign and a clip at both ends
+        return B * hw * (kw.get("in_bytes", 4) + 4), B * hw * 7
     if name == "dequant_levels":
         # a multiply-add, a shift and a clip at both ends
-        return B * hw * 8, B * hw * 5
+        return B * hw * (kw.get("in_bytes", 4) + 4), B * hw * 5
     if name == "satd67":
         n = 8 if (w >= 8 and h >= 8) else 4
         return (B * M * hw * 4 + B * hw * 4 + B * M * 4,
@@ -1713,7 +1738,9 @@ def main() -> int:
 
     def tr_inputs(w, h, bd):
         """The frame's residuals (the clip scaled to the bit depth, minus
-        1 << (bd - 1)), random residuals, int16-range inputs."""
+        1 << (bd - 1)), random residuals, int16-range inputs, and the int32
+        extremes (random int32, a checkerboard of INT32_MAX and INT32_MIN:
+        the butterflies' sums wrap there)."""
         res = tiles(frame_src, w, h) * (1 << (bd - 8)) - (1 << (bd - 1))
         mx = (1 << bd) - 1
         return {"frame": res,
@@ -1721,7 +1748,26 @@ def main() -> int:
                                       device=dev, dtype=torch.int32),
                 "int16": torch.randint(-32767, 32768, res.shape,
                                        generator=gen, device=dev,
-                                       dtype=torch.int32)}
+                                       dtype=torch.int32),
+                "int32": int32_extremes(res.shape)}
+
+    def int32_extremes(shape):
+        """Random int32 blocks, and every fourth a checkerboard of
+        INT32_MAX and INT32_MIN."""
+        x = torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                          device=dev, dtype=torch.int64)
+        h, w = shape[-2:]
+        board = (torch.arange(h, device=dev)[:, None]
+                 + torch.arange(w, device=dev)[None]) % 2 == 0
+        x[::4] = torch.where(board, 2 ** 31 - 1, -2 ** 31)
+        return x.to(torch.int32)
+
+    def at_offset(t, o):
+        """A copy of t that starts o elements past a 16-byte boundary."""
+        flat = torch.empty(t.numel() + o, dtype=t.dtype, device=dev)
+        view = flat[o:].view(t.shape)
+        view.copy_(t)
+        return view
 
     edges = torch.tensor([0, 1, -1, 200000, -200000, 2 ** 31 - 1, -2 ** 31,
                           32767, -32768, 26215, -26215, 29127],
@@ -1745,18 +1791,64 @@ def main() -> int:
                 if th != DCT2 or tv != DCT2:
                     continue
                 # the quantisers on the coefficients, int16-range values
-                # and the int32 edges
+                # and the int32 edges; on K13's int16 coefficients as they
+                # are, and both at an element offset of 1, 2 and 4
                 lv = cc.clone()
                 lv[0].view(-1)[:min(edges.numel(), w * h)] = \
                     edges[:w * h]
+                levels = {"int32": lv, "int16": c}
+                if tag == "frame":
+                    levels.update({f"{k} +{o}": at_offset(v, o)
+                                   for k, v in (("int32", lv), ("int16", c))
+                                   for o in (1, 2, 4)})
                 for qp in TR_QPS + (51 if bd == 8 else 63,):
-                    for intra in (True, False):
-                        same("quant_levels", f"{what} qp{qp} {intra}",
-                             qu.quant_batch(lv, qp, bd, intra),
-                             qu.quant_batch_plain(lv, qp, bd, intra))
-                    same("dequant_levels", f"{what} qp{qp}",
-                         qu.dequant_batch(lv, qp, bd),
-                         qu.dequant_batch_plain(lv, qp, bd))
+                    for lk, lx in levels.items():
+                        for intra in (True, False):
+                            same("quant_levels",
+                                 f"{what} {lk} qp{qp} {intra}",
+                                 qu.quant_batch(lx, qp, bd, intra),
+                                 qu.quant_batch_plain(lx, qp, bd, intra))
+                        same("dequant_levels", f"{what} {lk} qp{qp}",
+                             qu.dequant_batch(lx, qp, bd),
+                             qu.dequant_batch_plain(lx, qp, bd))
+    # K13 at every lattice shape (its templates) and at the generic shapes
+    # (a dimension of 1 or 2, 10 bits), one block more than a thread block
+    # holds, on residuals and the int32 extremes; K14 on element counts that
+    # are not multiples of 8 (2x1 and 1x1 blocks at 10 bits, int16 and
+    # int32, at an offset too)
+    sizes = (4, 8, 16, 32, 64)
+    for (w, h) in ([(w, h) for w in sizes for h in sizes]
+                   + [(1, 8), (8, 1), (2, 4), (2, 64), (64, 2), (1, 1)]):
+        bds = (10,) if min(w, h) < 4 else (8, 10)
+        nblk = max(1, 2048 // (w * h)) + 1
+        for bd in bds:
+            mx = (1 << bd) - 1
+            x = torch.cat([torch.randint(-mx, mx + 1, (nblk, h, w),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32),
+                           int32_extremes((4, h, w))])
+            what = f"{w}x{h} {bd}-bit lattice"
+            c = tr.fwd_batch(x, DCT2, DCT2, bd)
+            same("fwd_transform", what, c, tr.fwd_batch_plain(x, DCT2,
+                                                               DCT2, bd))
+            cc = torch.cat([c.to(torch.int32), x])
+            same("inv_transform", what, tr.inv_batch(cc, DCT2, DCT2, bd),
+                 tr.inv_batch_plain(cc, DCT2, DCT2, bd))
+    odd = torch.cat([edges, torch.randint(-40000, 40000, (2 * 37,),
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32)])
+    for shape in ((43, 2, 1), (86, 1, 1)):
+        for lk, lx in (("int32", odd.view(shape)),
+                       ("int16", odd.to(torch.int16).view(shape)),
+                       ("int32 +1", at_offset(odd.view(shape), 1)),
+                       ("int16 +1", at_offset(odd.to(torch.int16).view(shape),
+                                              1))):
+            for qp in TR_QPS + (63,):
+                what = f"{shape[2]}x{shape[1]} 10-bit {lk} qp{qp}"
+                same("quant_levels", what, qu.quant_batch(lx, qp, 10),
+                     qu.quant_batch_plain(lx, qp, 10))
+                same("dequant_levels", what, qu.dequant_batch(lx, qp, 10),
+                     qu.dequant_batch_plain(lx, qp, 10))
     # the wrap edges of the reference: 8x4 at 10 bits, qp_scaled 63, levels
     # of magnitude 26215 and more (level * (80 << 10) passes 2^31), and the
     # quant of 200000 at 4x4 10 bits, qp_scaled 0
@@ -1805,7 +1897,8 @@ def main() -> int:
                  lambda: qu.quant_batch_plain(c, QP, 8), None),
                 ("dequant_levels", lambda: qu.dequant_batch(lv, QP, 8),
                  lambda: qu.dequant_batch_plain(lv, QP, 8), None)):
-            timed(name, kern, plain, f"{w}x{h}", **shape)
+            timed(name, kern, plain, f"{w}x{h}", **shape,
+                  **({"in_bytes": 2} if name == "quant_levels" else {}))
             if lib is not None:
                 lib_ms = time_ms(torch, lib, 20)
                 library_ms[name] = (library_ms[name] or 0.0) + lib_ms

@@ -839,3 +839,114 @@ def test_redesigned_k12c_stages_equal_plain(card, w, h):
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before
             if kernels.LAUNCHES[k] != before[k]} == {"rough_refine": n}
+
+
+def _k13_k14_shapes():
+    sizes = (4, 8, 16, 32, 64)
+    return ([(w, h) for w in sizes for h in sizes]
+            + [(1, 8), (8, 1), (2, 4), (64, 2), (2, 64), (1, 1), (2, 2)])
+
+
+@pytest.mark.parametrize("w,h", _k13_k14_shapes())
+def test_redesigned_k13_k14_equal_plain(card, w, h):
+    """K13 (templates over (w, h) and the dimensions' kinds: DCT2 partial
+    butterflies with constant coefficients, DST7 / DCT8 matrix passes, int16
+    intermediates, the forward's kept outputs only, the inverse's shortcut
+    where the coefficients are zero outside a 64-point dimension's kept
+    half, and its full form where they are not; the generic instance at a
+    dimension of 1 or 2) at every (w, h) in {4..64}^2 and at the generic
+    shapes, 8 and 10 bits (10 only where a dimension is 1 or 2, as the
+    reference allows), DCT2 and (up to 32 points) the MTS pairs, on
+    residuals, int16-range inputs and the int32 extremes, with one block more
+    than a thread block holds; K14 (eight elements a thread, int16 or int32
+    read in place) on the coefficients as int16 and as int32, on views at
+    an odd element offset, on element counts that are not multiples of 8,
+    at every qp_scaled the encoder gives and both roundings. Every output
+    equal, dtypes included, one launch a wrapper call; K13 refuses blocks
+    that are not 16-byte aligned (wrapper and C entry)."""
+    from uvg266_tpu_torch.ops import quant as q
+    from uvg266_tpu_torch.ops import transforms as tr
+    from uvg266_tpu_torch.ops.tr_matrices import (DCT2, DCT8, DST7,
+                                                  device_matrix32)
+    rng = np.random.default_rng(w * 131 + h)
+    i32 = np.iinfo(np.int32)
+    U = max(1, 2048 // (w * h))
+    pairs = [(DCT2, DCT2)]
+    if 4 <= min(w, h) and max(w, h) <= 32:
+        pairs += [(DST7, DST7), (DCT8, DST7), (DST7, DCT8), (DCT8, DCT8),
+                  (DCT2, DST7), (DCT8, DCT2)]
+    bds = (10,) if min(w, h) < 4 else (8, 10)
+    n = {"fwd_transform": 0, "inv_transform": 0, "quant_levels": 0,
+         "dequant_levels": 0}
+
+    def at_offset(t, o):               # 2 to 8 bytes off the alignment
+        flat = torch.empty(t.numel() + o, dtype=t.dtype, device=card)
+        view = flat[o:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+
+    before = dict(kernels.LAUNCHES)
+    for bd in bds:
+        mx = (1 << bd) - 1
+        x = np.concatenate([
+            rng.integers(-mx, mx + 1, (U + 1, h, w)),
+            rng.integers(-32768, 32768, (2, h, w)),
+            rng.integers(i32.min, i32.max, (1, h, w), dtype=np.int64,
+                         endpoint=True),
+            np.full((1, h, w), i32.max), np.full((1, h, w), i32.min),
+            np.where(rng.random((1, h, w)) < 0.5, i32.max, i32.min)])
+        x = _t(x.astype(np.int32), card)
+        for th, tv in pairs:
+            c = tr.fwd_batch(x, th, tv, bd)
+            assert c.dtype == torch.int16
+            assert torch.equal(c, tr.fwd_batch_plain(x, th, tv, bd))
+            # the forward's output (zero outside what a 64-point dimension
+            # keeps: the inverse's shortcut), one such block with a nonzero
+            # there, the inputs themselves
+            odd = c[:1].to(torch.int32)
+            odd[0, -1, -1] = 7
+            cc = torch.cat([c.to(torch.int32), odd, x])
+            got = tr.inv_batch(cc, th, tv, bd)
+            assert got.dtype == torch.int16
+            assert torch.equal(got, tr.inv_batch_plain(cc, th, tv, bd))
+            n["fwd_transform"] += 1
+            n["inv_transform"] += 1
+        # K14: the coefficients as int16 (read in place) and int32, views
+        # at an odd element offset, an element count not a multiple of 8
+        c16 = tr.fwd_batch(x, DCT2, DCT2, bd)
+        n["fwd_transform"] += 1
+        lv = torch.cat([c16.to(torch.int32), x])
+        inputs = ([c16, lv] + [at_offset(c16, o) for o in (1, 2, 4)]
+                  + [at_offset(lv, o) for o in (1, 2)])
+        if bd == 10:      # 14 elements (8 bits has no such block shape)
+            odd = lv.reshape(-1)[:14].view(7, 2, 1)
+            inputs += [odd, odd.to(torch.int16)]
+        for qp in range(52 if bd == 8 else 64):
+            for v in inputs:
+                for intra in (True, False):
+                    a = q.quant_batch(v, qp, bd, intra)
+                    assert a.dtype == torch.int32
+                    assert torch.equal(a, q.quant_batch_plain(v, qp, bd,
+                                                              intra))
+                    n["quant_levels"] += 1
+                a = q.dequant_batch(v, qp, bd)
+                assert a.dtype == torch.int32
+                assert torch.equal(a, q.dequant_batch_plain(v, qp, bd))
+                n["dequant_levels"] += 1
+    # K13 refuses blocks that are not 16-byte aligned
+    flat = torch.zeros(2 * h * w + 4, dtype=torch.int32, device=card)
+    mis = flat[1:1 + 2 * h * w].view(2, h, w)
+    for fn in (tr.fwd_batch, tr.inv_batch):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(mis, DCT2, DCT2, 10)
+    out = torch.empty((2, h, w), dtype=torch.int16, device=card)
+    s1, s2 = tr.fwd_shifts(w, h, 10)
+    kw, kh = tr.zero_out(w, DCT2, DCT2, h)
+    m = [device_matrix32(DCT2, k, "cuda").data_ptr() for k in (w, h)]
+    with pytest.raises(RuntimeError, match="fwd_transform"):
+        kernels.launch("fwd_transform", card, mis.data_ptr(), 2, w, h, DCT2,
+                       DCT2, *m, s1, s2, kw, kh, out.data_ptr())
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == n

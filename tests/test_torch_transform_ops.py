@@ -40,13 +40,17 @@ def _same(port: torch.Tensor, ref) -> None:
 
 def _residuals(rng, w, h, bd, n=5):
     """Random residuals within +-(2^bd - 1), int16-range inputs (where the
-    int16 casts wrap), the all-max block and its negative."""
+    int16 casts wrap), the all-max block and its negative, and the int32
+    extremes (a checkerboard of INT32_MAX and INT32_MIN: the redesigned
+    kernel's butterfly sums wrap there)."""
     mx = (1 << bd) - 1
+    board = (np.arange(h)[:, None] + np.arange(w)[None]) % 2 == 0
     return np.concatenate([
         rng.integers(-mx, mx + 1, (n, h, w)),
         rng.integers(-32767, 32768, (n, h, w)),
         np.full((1, h, w), mx), np.full((1, h, w), -mx),
-        np.full((1, h, w), 32767)]).astype(np.int32)
+        np.full((1, h, w), 32767),
+        np.where(board, I32.max, I32.min)[None]]).astype(np.int32)
 
 
 def _check_transforms(w, h, th, tv, bd, rng):

@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 _HEADERS = ("common.cuh", "butterfly.cuh", "qpel.cuh", "rd_tail.cuh",
-            "angular.cuh")
+            "angular.cuh", "dct2_coef.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -83,14 +83,16 @@ SIGNATURES = {
     # stage, B, n1, hw, lam, s1, s2, refine, mode_bits, m1, p1, p2,
     # best_mode, satd_best, extra, pred
     "rough_refine": [_I, _I, _I, _I, _F] + [_P] * 11 + [_P],
-    # x, B, w, h, mat_w, mat_h, s1, s2, keep_w, keep_h, out
-    "fwd_transform": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
-    # c, B, w, h, mat_w, mat_h, s1, s2, out
-    "inv_transform": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
-    # coef, n, scale, add, q_bits, out
-    "quant_levels": [_P, _L, _I, _I, _I, _P, _P],
-    # q, n, scale, add, shift, out
-    "dequant_levels": [_P, _L, _I, _I, _I, _P, _P],
+    # x, B, w, h, tr_w, tr_h, mat_w, mat_h (int32 M), s1, s2, keep_w,
+    # keep_h, out
+    "fwd_transform": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                      _P],
+    # c, B, w, h, tr_w, tr_h, mat_w, mat_h (int32 M^T), s1, s2, out
+    "inv_transform": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
+    # coef, n, elem_bytes (2: int16, 4: int32), scale, add, q_bits, out
+    "quant_levels": [_P, _L, _I, _I, _I, _I, _P, _P],
+    # q, n, elem_bytes, scale, add, shift, out
+    "dequant_levels": [_P, _L, _I, _I, _I, _I, _P, _P],
 }
 # kernels whose C entry lives in another kernel's source
 SOURCE = {"refs_blocks": "refs_blocks_grid", "fwd_transform": "transform",

@@ -13,7 +13,9 @@ off: its int64 casts are int32) and wrap where it wraps, so they differ
 from the numpy ``quant`` / ``dequant`` above, which saturate: at 8x4, 10
 bits, qp_scaled 63 the level 29127 dequantises to -32768 (numpy: 32767),
 and at 4x4, 10 bits, qp_scaled 0 the coefficient 200000 quantises to 7231
-(numpy: 32767).
+(numpy: 32767). ``quant_batch_sep`` / ``dequant_batch_sep`` emulate the
+kernel's arithmetic (int16 or int32 read in place, eight elements a thread,
+the sign as selects) in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .transforms import _int32_blocks, _wrap
+from .transforms import _check_blocks, _int32_blocks, _wrap
 
 QUANT_SCALES = np.array([
     [26214, 23302, 20560, 18396, 16384, 14564],
@@ -232,23 +234,30 @@ def dequant_batch_plain(q: torch.Tensor, qp_scaled: int,
     return c.clamp(-32768, 32767).to(torch.int32)
 
 
+def _levels_input(name: str, x: torch.Tensor) -> torch.Tensor:
+    """x as K14 reads it: an int16 or int32 tensor as it is, another
+    integer type as int32 (the reference's astype)."""
+    _check_blocks(name, x)
+    return x if x.dtype in (torch.int16, torch.int32) else x.to(torch.int32)
+
+
 def _launch_levels(name: str, x: torch.Tensor, *consts: int) -> torch.Tensor:
     x = x.contiguous()
     dev = kernels.check_cuda(name, x)
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=torch.int32, device=dev)
     if x.numel():
-        kernels.launch(name, dev, x.data_ptr(), x.numel(), *consts,
-                       out.data_ptr())
+        kernels.launch(name, dev, x.data_ptr(), x.numel(), x.element_size(),
+                       *consts, out.data_ptr())
     return out
 
 
 def quant_batch(coef: torch.Tensor, qp_scaled: int, bitdepth: int = 8,
                 is_intra_slice: bool = True) -> torch.Tensor:
     """K14 quantiser: quant_batch_plain on the CPU, the CUDA kernel on the
-    card."""
+    card (which reads int16 and int32 coefficients in place)."""
     if coef.device.type == "cpu":
         return quant_batch_plain(coef, qp_scaled, bitdepth, is_intra_slice)
-    coef = _int32_blocks("quant_batch", coef)
+    coef = _levels_input("quant_batch", coef)
     return _launch_levels("quant_levels", coef, *quant_batch_consts(
         coef.shape[-1], coef.shape[-2], bitdepth, is_intra_slice, qp_scaled))
 
@@ -256,9 +265,60 @@ def quant_batch(coef: torch.Tensor, qp_scaled: int, bitdepth: int = 8,
 def dequant_batch(q: torch.Tensor, qp_scaled: int,
                   bitdepth: int = 8) -> torch.Tensor:
     """K14 dequantiser: dequant_batch_plain on the CPU, the CUDA kernel on
-    the card."""
+    the card (which reads int16 and int32 levels in place)."""
     if q.device.type == "cpu":
         return dequant_batch_plain(q, qp_scaled, bitdepth)
-    q = _int32_blocks("dequant_batch", q)
+    q = _levels_input("dequant_batch", q)
     return _launch_levels("dequant_levels", q, *dequant_batch_consts(
+        q.shape[-1], q.shape[-2], bitdepth, qp_scaled))
+
+
+# --- K14's arithmetic as csrc/quant.cu computes it ---------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def _levels_sep(name: str, x: torch.Tensor, quant: bool, scale: int,
+                add: int, shift: int) -> torch.Tensor:
+    """The kernel's elementwise pass over x as it reads it (int16 or int32
+    in place, any contiguous view): eight elements a thread from the
+    output's first 16-byte boundary (a fresh output: element 0), the last n
+    mod 8 elements one a thread, each in uint32 with the sign and |c| as
+    selects: s = c >> 31 (all ones or none), |c| = (c ^ s) - s, level =
+    (|c| scale + add) >> shift, q = (level ^ s) - s, 0 where c is 0."""
+    x = _levels_input(name, x).contiguous()
+    flat = x.reshape(-1).long()
+    n = flat.numel()
+    nvec = n // 8
+
+    def op(c):
+        if not quant:
+            return (_wrap(c * scale + add, 32) >> shift).clamp(-32768, 32767)
+        s = (c >> 31) & _U32
+        a = ((c & _U32) ^ s) - s & _U32
+        level = _wrap(a * scale + add, 32) >> shift
+        q = _wrap(((level & _U32) ^ s) - s, 32)
+        return torch.where(c == 0, 0, q).clamp(-32768, 32767)
+
+    out = torch.cat([op(flat[:8 * nvec].reshape(nvec, 8)).reshape(-1),
+                     op(flat[8 * nvec:])])
+    return out.to(torch.int32).reshape(x.shape)
+
+
+def quant_batch_sep(coef: torch.Tensor, qp_scaled: int, bitdepth: int = 8,
+                    is_intra_slice: bool = True) -> torch.Tensor:
+    """K14 quantiser as csrc/quant.cu computes it (_levels_sep), for int16
+    and int32 inputs and views at an offset. Same arguments and result as
+    quant_batch_plain, which it must equal bit for bit."""
+    _check_blocks("quant_batch", coef)
+    return _levels_sep("quant_batch", coef, True, *quant_batch_consts(
+        coef.shape[-1], coef.shape[-2], bitdepth, is_intra_slice, qp_scaled))
+
+
+def dequant_batch_sep(q: torch.Tensor, qp_scaled: int,
+                      bitdepth: int = 8) -> torch.Tensor:
+    """K14 dequantiser as csrc/quant.cu computes it (_levels_sep). Same
+    arguments and result as dequant_batch_plain."""
+    _check_blocks("dequant_batch", q)
+    return _levels_sep("dequant_batch", q, False, *dequant_batch_consts(
         q.shape[-1], q.shape[-2], bitdepth, qp_scaled))

@@ -10,7 +10,8 @@ parameter lists and the reduction rules, which the tests verify
 element-exactly against frozen hashes of the reference tables.
 
 ``device_matrix`` keeps an int8 copy of each matrix per device (every entry
-lies within +-91), as the transform kernels read them.
+lies within +-91), as the transform kernels read them; ``device_matrix32``
+an int32 copy (or its transpose), as K13 reads its DST7 / DCT8 matrices.
 """
 from __future__ import annotations
 
@@ -128,4 +129,15 @@ def get_matrix(tr_type: int, n: int) -> np.ndarray:
 def device_matrix(tr_type: int, n: int, device: str) -> torch.Tensor:
     """get_matrix(tr_type, n) as int8 on ``device``, built once per process."""
     return torch.from_numpy(get_matrix(tr_type, n).astype(np.int8)) \
+        .to(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def device_matrix32(tr_type: int, n: int, device: str,
+                    transpose: bool = False) -> torch.Tensor:
+    """get_matrix(tr_type, n), or its transpose, as int32 on ``device``,
+    built once per process: K13 reads a DST7 / DCT8 matrix's rows (the
+    forward) or its columns (the inverse) four at a time."""
+    m = get_matrix(tr_type, n).astype(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(m.T if transpose else m)) \
         .to(torch.device(device))

@@ -18,7 +18,10 @@ wrapper that launches the hand-written CUDA kernel (csrc/transform.cu) for
 tensors on the card. Both compute in int32 where the reference does (x64
 off: its products accumulate in int32), wrapping on overflow as it does,
 and cast to int16 as it does, so they differ from the numpy versions above
-on inputs far outside a residual's range.
+on inputs far outside a residual's range. ``fwd_batch_sep`` /
+``inv_batch_sep`` emulate the kernel's arithmetic (partial butterflies, the
+kept outputs only, int16 intermediates, sums wrapped to int32) in plain
+PyTorch, so the CPU tests hold its design to the plain versions.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .tr_matrices import DCT2, DCT8, DST7, device_matrix, get_matrix
+from .tr_matrices import (DCT2, DCT8, DST7, dct2_matrix, device_matrix,
+                          device_matrix32, get_matrix)
 
 LOG2 = {1: 0, 2: 1, 4: 2, 8: 3, 16: 4, 32: 5, 64: 6}
 
@@ -137,12 +141,17 @@ def _inv_params(width: int, height: int, type_hor: int, type_ver: int,
     return s1, s2
 
 
-def _int32_blocks(name: str, x: torch.Tensor) -> torch.Tensor:
-    """x [..., h, w] of an integer type as int32, as the reference's
-    astype(int32)."""
+def _check_blocks(name: str, x: torch.Tensor) -> None:
+    """Raise unless x is an integer tensor [..., h, w]."""
     if x.dim() < 2 or x.dtype.is_floating_point or x.dtype.is_complex \
             or x.dtype == torch.bool:
         raise ValueError(f"{name}: expects an integer tensor [..., h, w]")
+
+
+def _int32_blocks(name: str, x: torch.Tensor) -> torch.Tensor:
+    """x [..., h, w] of an integer type as int32, as the reference's
+    astype(int32)."""
+    _check_blocks(name, x)
     return x.to(torch.int32)
 
 
@@ -203,12 +212,17 @@ def _launch_transform(name: str, x: torch.Tensor, type_hor: int,
     h, w = x.shape[-2:]
     x = x.contiguous()
     dev = kernels.check_cuda(name, x)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the blocks must be 16-byte aligned (the "
+                         "kernel reads them four samples at a time)")
     out = torch.empty(x.shape, dtype=torch.int16, device=dev)
     B = x.numel() // (h * w)
     if B:
-        kernels.launch(name, dev, x.data_ptr(), B, w, h,
-                       device_matrix(type_hor, w, str(dev)).data_ptr(),
-                       device_matrix(type_ver, h, str(dev)).data_ptr(),
+        # the forward reads M's rows, the inverse M^T's (M's columns)
+        t = name == "inv_transform"
+        kernels.launch(name, dev, x.data_ptr(), B, w, h, type_hor, type_ver,
+                       device_matrix32(type_hor, w, str(dev), t).data_ptr(),
+                       device_matrix32(type_ver, h, str(dev), t).data_ptr(),
                        *params, out.data_ptr())
     return out
 
@@ -235,3 +249,105 @@ def inv_batch(c: torch.Tensor, type_hor: int = DCT2, type_ver: int = DCT2,
     h, w = c.shape[-2:]
     params = _inv_params(w, h, type_hor, type_ver, bitdepth)
     return _launch_transform("inv_transform", c, type_hor, type_ver, *params)
+
+
+# --- K13's arithmetic as csrc/transform.cu computes it ----------------------
+
+def _bfly_fwd_keep(v: torch.Tensor, n: int, keep: int) -> torch.Tensor:
+    """The first ``keep`` outputs of the n-point forward DCT2 along the last
+    axis of v (int64 holding int32), as the kernel's partial butterfly to
+    its full depth: e = v[x] + v[n-1-x] and d = v[x] - v[n-1-x] (x < n/2),
+    the odd outputs from d and the n-point matrix, the even ones the
+    n/2-point transform of e; every sum wrapped to int32 (the kernel's
+    uint32)."""
+    if n == 1:
+        return _wrap(v * 64, 32)
+    hn = n // 2
+    r = v.flip(-1)[..., :hn]
+    e, d = _wrap(v[..., :hn] + r, 32), _wrap(v[..., :hn] - r, 32)
+    m = torch.from_numpy(dct2_matrix(n)).long().to(v.device)
+    out = torch.empty(v.shape[:-1] + (keep,), dtype=torch.int64,
+                      device=v.device)
+    out[..., 1::2] = _wrap(_imatmul(d, m[1:keep:2, :hn].T), 32)
+    out[..., 0::2] = _bfly_fwd_keep(e, hn, (keep + 1) // 2)
+    return out
+
+
+def _bfly_inv_full(c: torch.Tensor, n: int) -> torch.Tensor:
+    """The n-point inverse DCT2 along the last axis, as the kernel's
+    butterfly: out[x] = E(x) + O(x), out[n-1-x] = E(x) - O(x), O from the
+    odd coefficients and the n-point matrix, E the n/2-point inverse of the
+    even ones; every sum wrapped to int32."""
+    if n == 1:
+        return _wrap(c * 64, 32)
+    hn = n // 2
+    m = torch.from_numpy(dct2_matrix(n)).long().to(c.device)
+    e = _bfly_inv_full(c[..., 0::2], hn)
+    o = _wrap(_imatmul(c[..., 1::2], m[1::2, :hn]), 32)
+    return torch.cat([_wrap(e + o, 32), _wrap(e - o, 32).flip(-1)], -1)
+
+
+def _pass_sep(v: torch.Tensor, tr_type: int, n: int, keep: int, fwd: bool,
+              butterfly: bool) -> torch.Tensor:
+    """One 1-D pass along the last axis (the rounding add and shift not
+    included): the butterfly of a DCT2 dimension, or the matrix product of
+    a DST7 / DCT8 dimension and of the generic instance; the forward's
+    first ``keep`` outputs, the inverse's every output."""
+    if butterfly and tr_type == DCT2:
+        return _bfly_fwd_keep(v, n, keep) if fwd else _bfly_inv_full(v, n)
+    m = torch.from_numpy(get_matrix(tr_type, n)).long().to(v.device)
+    return _wrap(_imatmul(v, m[:keep].T if fwd else m), 32)
+
+
+def fwd_batch_sep(x: torch.Tensor, type_hor: int = DCT2,
+                  type_ver: int = DCT2, bitdepth: int = 8) -> torch.Tensor:
+    """K13 forward as csrc/transform.cu computes it, in plain PyTorch: the
+    row pass (partial butterflies to full depth for DCT2, matrix passes for
+    DST7 / DCT8; plain products at a dimension of 1 or 2, the generic
+    instance) computes only the keep_w kept outputs, t is int16, the column
+    pass only the kept columns' keep_h outputs, zeros elsewhere; the sums
+    wrap to int32. Same arguments and result as fwd_batch_plain, which it
+    must equal bit for bit."""
+    x = _int32_blocks("fwd_batch", x)
+    h, w = x.shape[-2:]
+    s1, s2, keep_w, keep_h = _fwd_params(w, h, type_hor, type_ver, bitdepth)
+    bf = w >= 4 and h >= 4
+    xb = x.reshape(-1, h, w)
+    out = torch.zeros(xb.shape, dtype=torch.int16, device=x.device)
+    step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
+    for b0 in range(0, xb.shape[0], step):
+        blk = xb[b0:b0 + step].long()
+        t = _pass_sep(blk, type_hor, w, keep_w, True, bf)        # [b, h, kw]
+        t = _wrap(_wrap(t + (1 << (s1 - 1)), 32) >> s1, 16)
+        c = _pass_sep(t.mT, type_ver, h, keep_h, True, bf)       # [b, kw, kh]
+        c = _wrap(_wrap(c + (1 << (s2 - 1)), 32) >> s2, 16)
+        out[b0:b0 + step, :keep_h, :keep_w] = c.mT.to(torch.int16)
+    return out.reshape(x.shape)
+
+
+def inv_batch_sep(c: torch.Tensor, type_hor: int = DCT2,
+                  type_ver: int = DCT2, bitdepth: int = 8) -> torch.Tensor:
+    """K13 inverse as csrc/transform.cu computes it, in plain PyTorch: the
+    column pass, then u as int16 (clipped), then the row pass, each a
+    butterfly (DCT2) or a matrix pass (DST7 / DCT8; plain products at a
+    dimension of 1 or 2) over every coefficient (the kernel's shortcut for
+    coefficients that are zero outside a 64-point dimension's first 32
+    leaves out only terms that are zero, and its __dp2a_lo pairs add the
+    same products); the sums wrap to int32.
+    Same arguments and result as inv_batch_plain, which it must equal bit
+    for bit."""
+    c = _int32_blocks("inv_batch", c)
+    h, w = c.shape[-2:]
+    s1, s2 = _inv_params(w, h, type_hor, type_ver, bitdepth)
+    bf = w >= 4 and h >= 4
+    cb = c.reshape(-1, h, w)
+    out = torch.empty(cb.shape, dtype=torch.int16, device=c.device)
+    step = max(1, _PLAIN_CHUNK // (h * w * max(w, h)))
+    for b0 in range(0, cb.shape[0], step):
+        blk = cb[b0:b0 + step].long()
+        u = _pass_sep(blk.mT, type_ver, h, h, False, bf).mT       # columns
+        u = (_wrap(u + (1 << (s1 - 1)), 32) >> s1).clamp(-32768, 32767)
+        r = _pass_sep(u, type_hor, w, w, False, bf)                # rows
+        r = (_wrap(r + (1 << (s2 - 1)), 32) >> s2).clamp(-32768, 32767)
+        out[b0:b0 + step] = r
+    return out.reshape(c.shape)
