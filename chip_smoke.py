@@ -135,10 +135,35 @@ Phases, one line each (or a few), any failure exits non-zero:
      136x72 (its plane pads to 144x80: K5's last thread block holds one
      tile, the last CTU row is partial) must give byte-identical access
      units and recon;
-  9. 192x128 clips encoded on the card (all-intra, LD, rdoq LD, dense RA,
+  9. the mesh encoders, the CLI and the entry points on the card:
+  9a. MeshEncoder on a ('gop', 'tile') = (2, 4) mesh: 832x480 all-intra
+     QP22 with 2x2 tiles (wpp off), 4 frames of the clip; its AUs and
+     recons byte-identical to the plain Encoder's on the card with the same
+     Config, its per-frame RD stats > 0, K1-K4 once per class and batch of
+     2 frames (the plain encode once per class and frame); then the same
+     with mip=True over 2 frames (K10 once per class and frame, K2 once and
+     K3/K4 twice per class and batch); wall fps and device busy time;
+  9b. MeshGopEncoder on a ('gop',) mesh of 2: phase 6's LD configuration
+     (QP27, intra_period 64, wpp off), 2 runs of 4 frames, byte-identical
+     to two plain Encoders; every step through the batched group dispatch
+     (one call a step, no fallback), K1-K4 once per class and step, K5 once
+     per P step; wall fps and device busy time; the wall of the same 8
+     frames through the gop mesh, the gop mesh with its dispatcher unset
+     and two plain Encoders, in the order a b c c b a; then the batched
+     call alone at 832x480 with G = 2 slots at one QP and at two, for the
+     P/B screen (K5 per group) and the IDR search: each row equal to the
+     slot's own call on the card and to the plain versions on the CPU,
+     tolerance 0, K1-K3 once per class and K4 (and K5) once per QP group;
+  9c. the CLI (python -m uvg266_tpu_torch.tools.encode --device cuda
+     --verify) in a subprocess on a 3-frame 832x480 .y4m of the clip: its
+     output file equals the port Encoder's AUs on the card, and decodes
+     through the port's oracle (ref_decoder) with every checksum right;
+  9d. graft_entry.entry() on the card equal to its plain form (device
+     cpu), tolerance 0, and graft_entry.dryrun_multichip(8) on the card;
+ 10. 192x128 clips encoded on the card (all-intra, LD, rdoq LD, dense RA,
      MIP, MTS, 10-bit LD, slow-tools RA, rough) decode through the port's oracle
      decoder, with their references, to the encoder's reconstruction;
- 10. a JSON line with each kernel's numbers, then the last line
+ 11. a JSON line with each kernel's numbers, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports nothing of JAX or the JAX package.
@@ -147,8 +172,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -895,7 +922,7 @@ def main() -> int:
     from uvg266_tpu_torch.oracle.decoder import decode_au
 
     dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
+    card_kind = torch.cuda.get_device_name(0)
 
     # --- 1. the card --------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -905,7 +932,7 @@ def main() -> int:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
-    print(f"phase 1 card: {kind}, torch {torch.__version__}, CUDA "
+    print(f"phase 1 card: {card_kind}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, count {torch.cuda.device_count()}",
           flush=True)
 
@@ -2255,7 +2282,270 @@ def main() -> int:
     msg.append(card_vs_cpu("LD 136x72", s_cfg, s_outs, 3, s_clip))
     print("phase 8 card vs CPU byte-identical: " + "; ".join(msg), flush=True)
 
-    # --- 9. small clips through the oracle decoder --------------------------
+    # --- 9. the mesh encoders, the CLI and the entry points ----------------
+    from uvg266_tpu_torch import graft_entry
+    from uvg266_tpu_torch.oracle.ref_decoder import decode_stream
+    from uvg266_tpu_torch.parallel import (MeshEncoder, MeshGopEncoder,
+                                           build_gop_mesh, build_mesh)
+    n0 = checks
+    mesh_counts = {}
+
+    def same_bytes(what, a, b):
+        nonlocal checks
+        checks += 1
+        if a != b:
+            fail(f"{what}: differs")
+
+    def same_recon(what, a, b):
+        for p in ("y", "u", "v"):
+            same_bytes(f"{what} recon {p}", np.asarray(getattr(a, p)).tobytes(),
+                       np.asarray(getattr(b, p)).tobytes())
+
+    def mesh_intra(label, mcfg_, mclip, per_batch, per_frame):
+        """MeshEncoder on the (2, 4) mesh against the plain Encoder, both on
+        the card: AUs and recons equal, launches as given."""
+        mesh = build_mesh(8, device=dev)
+        if mesh.shape != {"gop": 2, "tile": 4}:
+            fail(f"9a {label}: mesh {mesh.shape}")
+        MeshEncoder(mcfg_, mesh).encode(mclip[:2])                # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        menc = MeshEncoder(mcfg_, mesh)
+        got = menc.encode(mclip)
+        torch.cuda.synchronize()
+        mwall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n_cls = len(menc._search_classes()[1])
+        batches = len(mclip) // 2
+        expect(f"mesh {label}", launches,
+               {k: v * n_cls * batches for k, v in per_batch.items()})
+        mesh_counts[f"mesh {label}"] = launches
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ref = encode(Encoder(mcfg_, device=dev), FramePlanes, mclip)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+        expect(f"plain {label}", dict(kernels.LAUNCHES),
+               {k: v * n_cls * len(mclip) for k, v in per_frame.items()})
+        if not len(got) == len(ref) == len(mclip):
+            fail(f"9a {label}: {len(got)} mesh and {len(ref)} plain frames")
+        for i, ((au_m, rec_m), (au_p, rec_p, *_r)) in enumerate(zip(got, ref)):
+            same_bytes(f"9a {label} frame {i} AU", au_m, au_p)
+            same_recon(f"9a {label} frame {i}", rec_m, rec_p)
+        if len(menc.frame_rd_stats) != len(mclip) or \
+                not all(v > 0 for v in menc.frame_rd_stats):
+            fail(f"9a {label}: frame RD stats {menc.frame_rd_stats}")
+        print(f"phase 9a mesh {label}: {len(mclip)} frames {W}x{H} "
+              f"QP{mcfg_.qp}, mesh (gop 2, tile 4), {n_cls} classes, in "
+              f"{mwall:.3f} s = {len(mclip) / mwall:.3f} fps wall (plain "
+              f"{pwall:.3f} s = {len(mclip) / pwall:.3f} fps), "
+              f"{sum(len(a) for a, _r in got)} bytes equal the plain "
+              f"encode's, frame RD "
+              + ", ".join(f"{v:.1f}" for v in menc.frame_rd_stats)
+              + ", launches " + json.dumps(launches), flush=True)
+        print(busy_share(torch, lambda: MeshEncoder(mcfg_, mesh).encode(
+            mclip), every=True), flush=True)
+
+    tcfg_ = dataclasses.replace(cfg, tiles_width_count=2, tiles_height_count=2,
+                                wpp=False)
+    mesh_intra("all-intra", tcfg_, clip[:4],
+               dict.fromkeys(INTRA_KERNELS, 1), dict.fromkeys(INTRA_KERNELS, 1))
+    mesh_intra("MIP", dataclasses.replace(tcfg_, mip=True), clip[:2],
+               {"refs_blocks_grid": 1, "predict67": 1, "satd67": 2,
+                "rd_cost": 2, "mip_preds": 2},
+               {"refs_blocks_grid": 1, "predict67": 1, "satd67": 2,
+                "rd_cost": 2, "mip_preds": 1, "refs_blocks": 1})
+
+    # 9b: closed-GOP runs in lockstep, every step one batched call
+    gcfg = ld_config(Config)
+    G_, L_ = 2, 4
+    gclip = clip[:G_ * L_]
+    gmesh = build_gop_mesh(G_, device=dev)
+    MeshGopEncoder(gcfg, gmesh).encode(gclip[:G_ * 2])           # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    genc = MeshGopEncoder(gcfg, gmesh)
+    gres = genc.encode(gclip)
+    torch.cuda.synchronize()
+    gwall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_cls_g = n_classes(genc.encs[0])
+    if genc.disp.n_batched != L_ or genc.disp.n_fallback:
+        fail(f"9b: {genc.disp.n_batched} batched calls (expected {L_}), "
+             f"{genc.disp.n_fallback} fallbacks")
+    expect("gop mesh", launches,
+           {**dict.fromkeys(INTRA_KERNELS, n_cls_g * L_),
+            "pseudo_recon": L_ - 1})
+    mesh_counts["gop mesh"] = launches
+    for g in range(G_):
+        ref = encode(Encoder(gcfg, device=dev), FramePlanes,
+                     gclip[g * L_:(g + 1) * L_])
+        if not len(gres[g]) == len(ref) == L_:
+            fail(f"9b run {g}: {len(gres[g])} mesh and {len(ref)} plain frames")
+        for i, (a, b) in enumerate(zip(gres[g], ref)):
+            same_bytes(f"9b run {g} frame {i} AU", a[0], b[0])
+            same_recon(f"9b run {g} frame {i}", a[1], b[1])
+    print(f"phase 9b gop mesh: {G_} runs of {L_} frames {W}x{H} QP{LD_QP} "
+          f"LD in {gwall:.3f} s = {G_ * L_ / gwall:.3f} fps wall, "
+          f"{genc.disp.n_batched} batched calls, {genc.disp.n_fallback} "
+          f"fallbacks, {sum(len(o[0]) for r in gres for o in r)} bytes equal "
+          "two plain encodes', launches " + json.dumps(launches), flush=True)
+    print(busy_share(torch, lambda: MeshGopEncoder(gcfg, gmesh).encode(gclip),
+                     every=True), flush=True)
+
+    # 9b's wall against the same 8 frames through two plain Encoders (one
+    # after the other) and through the gop mesh with its dispatcher unset
+    # (the runs' host threads alone), in the order a b c c b a
+    def gop_mesh(dispatch):
+        m = MeshGopEncoder(gcfg, gmesh)
+        if not dispatch:
+            for e in m.encs:
+                e.slice_enc._mesh_dispatch = None
+        return lambda: m.encode(gclip)
+
+    def plain_runs():
+        for g in range(G_):
+            encode(Encoder(gcfg, device=dev), FramePlanes,
+                   gclip[g * L_:(g + 1) * L_])
+
+    walls = {"gop mesh": [], "gop mesh, dispatcher unset": [],
+             "two plain Encoders": []}
+    for label in ("gop mesh", "gop mesh, dispatcher unset",
+                  "two plain Encoders", "two plain Encoders",
+                  "gop mesh, dispatcher unset", "gop mesh"):
+        run = plain_runs if label == "two plain Encoders" \
+            else gop_mesh(label == "gop mesh")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls[label].append(time.perf_counter() - t0)
+    print(f"phase 9b walls, {G_ * L_} frames {W}x{H} QP{LD_QP} LD, order "
+          "a b c c b a: " + "; ".join(
+              f"{k} " + ", ".join(f"{t} s = {G_ * L_ / t} fps" for t in v)
+              for k, v in walls.items()), flush=True)
+
+    # the batched call alone at the main path's size: G = 2 slots at one
+    # QP and at two, each row against the slot's own call on the card and
+    # the plain versions on the CPU (K5 over a group's planes as one plane
+    # of 2H rows, K1 over both planes with the pseudo-recon references),
+    # tolerance 0; K1-K3 once per class, K4 (and K5) once per QP group
+    from uvg266_tpu_torch.control.encoder import (_get_frame_combo_fn,
+                                                  _get_pframe_intra_combo_fn)
+    from uvg266_tpu_torch.control.partition import qp_to_lambda
+    from uvg266_tpu_torch.ops.tables import frame_tables
+    from uvg266_tpu_torch.parallel.mesh import _MeshGroupDispatch
+    n1 = checks
+    ctrl_g = genc.encs[0].ctrl
+    classes_g = tuple((w_, h_, g_) for (_k, w_, h_, _p, g_)
+                      in genc.encs[0].slice_enc._fused_entries_c)
+    planes_g = [np.ascontiguousarray(f.y, dtype=np.int32) for f in gclip[:2]]
+    disp = _MeshGroupDispatch(gmesh, 2)
+    for req in ("pframe_intra", "frame_intra"):
+        intra = req == "frame_intra"
+        if intra:
+            gkey = (req, classes_g, 8)
+            fn = _get_frame_combo_fn(classes_g, 8)
+        else:
+            gkey = (req, classes_g, H, W, 8)
+            fn = _get_pframe_intra_combo_fn(classes_g, H, W, 8)
+        singles = {}
+
+        def single(s, q, where):
+            if (s, q, where) not in singles:
+                tabs = frame_tables(q, str(where))
+                singles[s, q, where] = fn(
+                    torch.from_numpy(planes_g[s]).to(where),
+                    ctrl_g.luma_qp_scaled(q),
+                    float(np.float32(qp_to_lambda(q, intra))), tabs["wts"],
+                    tabs["mode_bits"]).cpu().numpy()
+            return singles[s, q, where]
+
+        for qps_ in ((LD_QP, LD_QP), (LD_QP, LD_QP + 5)):
+            n_grp = len(set(qps_))
+            kernels.reset_launches()
+            rows = disp._batched(gkey, [
+                (planes_g[s], ctrl_g.luma_qp_scaled(q),
+                 float(np.float32(qp_to_lambda(q, intra))), q)
+                for s, q in enumerate(qps_)])
+            torch.cuda.synchronize()
+            expect(f"9b batched {req} QPs {qps_}", dict(kernels.LAUNCHES),
+                   {"refs_blocks_grid": len(classes_g),
+                    "predict67": len(classes_g), "satd67": len(classes_g),
+                    "rd_cost": len(classes_g) * n_grp,
+                    "pseudo_recon": 0 if intra else n_grp})
+            for s, q in enumerate(qps_):
+                for where in (dev, "cpu"):
+                    checks += 1
+                    want = single(s, q, where)
+                    if rows[s].shape != want.shape or \
+                            not np.array_equal(rows[s], want):
+                        fail(f"9b batched {req} QPs {qps_} slot {s}: the row "
+                             f"differs from the slot's own call on {where}")
+    print(f"phase 9b batched call at {W}x{H}, G = 2, one and two QP groups, "
+          f"{len(classes_g)} classes: {checks - n1} rows equal the slots' own "
+          "calls on the card and the plain versions on the CPU", flush=True)
+
+    # 9c: the CLI on the card in a subprocess
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as td:
+        y4m, vvc = os.path.join(td, "clip.y4m"), os.path.join(td, "out.vvc")
+        with open(y4m, "wb") as fh:
+            fh.write(f"YUV4MPEG2 W{W} H{H} F30:1 Ip C420jpeg\n".encode())
+            for (y, u, v) in frames[:3]:
+                fh.write(b"FRAME\n")
+                for pl in (y, u, v):
+                    fh.write(pl.astype(np.uint8).tobytes())
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "uvg266_tpu_torch.tools.encode", "-i", y4m,
+                            "-o", vvc, "-p", "1", "-q", str(QP), "--device",
+                            "cuda", "--verify"], cwd=repo, capture_output=True,
+                           text=True, timeout=600)
+        cwall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"9c CLI exit {r.returncode}: {r.stderr[-2000:]}")
+        with open(vvc, "rb") as fh:
+            stream = fh.read()
+    # the Config the CLI builds for "-p 1 -q QP" (tools/encode.py)
+    ccfg = Config(width=W, height=H, qp=QP, input_bitdepth=8, gop_len=0,
+                  gop_lowdelay=True, intra_period=1, bipred=0,
+                  tmvp_enable=False, target_bitrate=0, vaq=0,
+                  ime_algorithm=0, me_max_steps=-1, stats_audit=False,
+                  rc_algorithm="lambda", cqmfile=None, sao_type=3,
+                  deblock_enable=True, deblock_beta=0, deblock_tc=0,
+                  rdoq_enable=False, signhide_enable=True, wpp=False,
+                  ref_frames=1)
+    couts = encode(Encoder(ccfg, device=dev), FramePlanes, clip[:3])
+    same_bytes("9c CLI output", stream, b"".join(o[0] for o in couts))
+    decoded = decode_stream(stream)
+    if len(decoded) != 3 or not all(fr.checksum_ok for fr in decoded):
+        fail(f"9c CLI output: {len(decoded)} frames decoded, checksums "
+             f"{[fr.checksum_ok for fr in decoded]}")
+    summary = [ln.strip() for ln in r.stdout.splitlines() if ln.strip()]
+    print(f"phase 9c CLI: 3 frames {W}x{H} QP{QP} on the card in "
+          f"{cwall:.3f} s (the subprocess, start-up included), "
+          f"{len(stream)} bytes equal the Encoder's and decode through the "
+          f"oracle; " + " | ".join(summary), flush=True)
+
+    # 9d: the entry points
+    fn_c, args_c = graft_entry.entry()
+    fn_p, args_p = graft_entry.entry(device="cpu")
+    best_c, cost_c = fn_c(*args_c)
+    best_p, cost_p = fn_p(*args_p)
+    same("rd_cost", "entry() best", best_c.cpu(), best_p)
+    same("rd_cost", "entry() costs", cost_c.cpu(), cost_p)
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(8)
+    print(f"phase 9d entry points: entry() equals its plain form "
+          f"({best_c.numel()} blocks), dryrun_multichip(8) on the card in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"phase 9 mesh, CLI and entry points: {checks - n0} comparisons, "
+          "all equal", flush=True)
+
+    # --- 10. small clips through the oracle decoder -------------------------
     for label, mk in (("all-intra", bench_config), ("low-delay", ld_config),
                       ("rdoq LD", rdoq_ld_config),
                       ("dense RA", dense_config), ("MIP", mip_config),
@@ -2283,11 +2573,11 @@ def main() -> int:
                     fail(f"oracle {label} poc {fs.poc}: decoded {p} differs "
                          "from the encoder's recon")
             dpb[fs.poc] = dec
-        print(f"phase 9 oracle {label}: {len(sout)} frames 192x128 ("
+        print(f"phase 10 oracle {label}: {len(sout)} frames 192x128 ("
               + "".join(SLICE[o[2].slicetype] for o in sout)
               + ") decode to the encoder's recon", flush=True)
 
-    # --- 10. results --------------------------------------------------------
+    # --- 11. results --------------------------------------------------------
     rows = []
     for name in REPLACES:
         t_bytes = bytes_[name] / HBM_BYTES_PER_S
@@ -2305,6 +2595,8 @@ def main() -> int:
             "library_ms": library_ms[name],
             "path": MAIN_PATH[name] + (" (no encode path reaches it)"
                                        if name in TR_KERNELS else ""),
+            "mesh_launches": {p: c.get(name, 0)
+                              for p, c in mesh_counts.items()},
         })
         if name == "frac_search":
             # the row is the winner form's (the one the path launches)
@@ -2314,7 +2606,7 @@ def main() -> int:
             rows[-1]["stages"] = k12c_stages
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": card_kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

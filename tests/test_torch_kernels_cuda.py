@@ -950,3 +950,110 @@ def test_redesigned_k13_k14_equal_plain(card, w, h):
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before
             if kernels.LAUNCHES[k] != before[k]} == n
+
+
+def _mesh_planes(n, h, w, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+        y = np.clip((xx * 2 + yy + i * 17) % 255
+                    + rng.integers(-20, 21, (h, w)), 0, 255).astype(np.int32)
+        out.append((y, (y[::2, ::2] // 2 + 40).astype(np.int32),
+                    (y[::2, ::2] // 3 + 60).astype(np.int32)))
+    return out
+
+
+def test_group_dispatch_batched_on_card(card):
+    """The gop mesh's batched call on the card, slots at two QPs: each
+    slot's row equals its own call on the card and on the CPU; K1, K2 and
+    K3 launch once per class for all slots, K4 and K5 once per QP group."""
+    import threading
+
+    from uvg266_tpu_torch.cfg import Config
+    from uvg266_tpu_torch.control.encoder import (Encoder,
+                                                  _get_pframe_intra_combo_fn)
+    from uvg266_tpu_torch.control.partition import (PartitionSearch,
+                                                    qp_to_lambda)
+    from uvg266_tpu_torch.parallel import build_gop_mesh
+    from uvg266_tpu_torch.parallel.mesh import _MeshGroupDispatch
+    W, H = 160, 96
+    cfg = Config(width=W, height=H, qp=27, gop_len=4, gop_lowdelay=True,
+                 intra_period=64, rdoq_enable=False, wpp=False)
+    enc = Encoder(cfg, device=card)
+    entries = enc.slice_enc._fused_entries(
+        PartitionSearch(enc.ctrl, cfg, qp=27, is_intra=False))
+    classes = tuple((w, h, g) for (_k, w, h, _p, g) in entries)
+    key = ("pframe_intra", classes, H, W, 8)
+    qps = [27, 32, 27, 32]
+    planes = [p[0] for p in _mesh_planes(4, H, W, 3)]
+    args = [(p, enc.ctrl.luma_qp_scaled(q),
+             float(np.float32(qp_to_lambda(q, False))), q)
+            for p, q in zip(planes, qps)]
+    disp = _MeshGroupDispatch(build_gop_mesh(4, device=card), 4)
+    res = [None] * 4
+
+    def work(s):
+        res[s] = disp.run(s, key, args[s], lambda: pytest.fail("fell back"))
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    threads = [threading.Thread(target=work, args=(s,)) for s in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    n = len(classes)
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]} == {
+        "refs_blocks_grid": n, "predict67": n, "satd67": n,
+        "rd_cost": 2 * n, "pseudo_recon": 2}
+    assert disp.n_batched == 1 and disp.n_fallback == 0
+    for s in range(4):
+        for dev in (card, torch.device("cpu")):
+            ft = tb.frame_tables(qps[s], str(dev))
+            one = _get_pframe_intra_combo_fn(classes, H, W, 8)(
+                torch.from_numpy(planes[s]).to(dev), args[s][1], args[s][2],
+                ft["wts"], ft["mode_bits"]).cpu().numpy()
+            assert np.array_equal(res[s], one), (s, dev)
+
+
+@pytest.mark.parametrize("tools", [{}, {"intra_rough": True},
+                                   {"mip": True}],
+                         ids=["plain", "rough", "mip"])
+def test_mesh_encoder_on_card(card, tools):
+    """MeshEncoder on a (2, 4) mesh on the card: AUs and recons equal the
+    plain Encoder's on the card and the CPU mesh's."""
+    from uvg266_tpu_torch.cfg import Config
+    from uvg266_tpu_torch.control.encoder import Encoder, FramePlanes
+    from uvg266_tpu_torch.parallel import MeshEncoder, build_mesh
+    kw = dict(width=256, height=128, qp=32, gop_len=0, intra_period=1,
+              tiles_width_count=2, tiles_height_count=2, wpp=False, **tools)
+    frames = [FramePlanes(*f) for f in _mesh_planes(3, 128, 256, 4)]
+    got = MeshEncoder(Config(**kw), build_mesh(8, device=card)).encode(frames)
+    cpu = MeshEncoder(Config(**kw), build_mesh(8, device="cpu")).encode(frames)
+    enc = Encoder(Config(**kw), device=card)
+    ref = [o[:2] for f in frames for o in enc.feed(f)]
+    ref += [o[:2] for o in enc.flush()]
+    for (au_m, rec_m), (au_c, _rc), (au_p, rec_p) in zip(got, cpu, ref):
+        assert au_m == au_p == au_c
+        assert np.array_equal(rec_m.y, rec_p.y)
+
+
+def test_gop_mesh_on_card(card):
+    """MeshGopEncoder (LD, G = 2, L = 3) on the card: every step batched,
+    each run's AUs equal a plain Encoder's on the card."""
+    from uvg266_tpu_torch.cfg import Config
+    from uvg266_tpu_torch.control.encoder import Encoder, FramePlanes
+    from uvg266_tpu_torch.parallel import MeshGopEncoder, build_gop_mesh
+    kw = dict(width=128, height=80, qp=30, gop_len=4, gop_lowdelay=True,
+              intra_period=64, ref_frames=1, rdoq_enable=False, wpp=False)
+    frames = [FramePlanes(*f) for f in _mesh_planes(6, 80, 128, 5)]
+    m = MeshGopEncoder(Config(**kw), build_gop_mesh(2, device=card))
+    res = m.encode(frames)
+    assert m.disp.n_batched == 3 and m.disp.n_fallback == 0
+    for g in range(2):
+        enc = Encoder(Config(**kw), device=card)
+        ref = [o[0] for f in frames[3 * g:3 * g + 3] for o in enc.feed(f)]
+        ref += [o[0] for o in enc.flush()]
+        assert [o[0] for o in res[g]] == ref

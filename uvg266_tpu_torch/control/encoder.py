@@ -1440,27 +1440,115 @@ def _get_frames_combo_fn(classes, bitdepth: int = 8):
     batched along the block axis (one launch per kernel and class for all
     F frames, same QP). fn(srcs [F, H, W] int32 tensor, qps, lam, wts,
     mode_bits) -> [F, total] float32 tensor on srcs' device."""
-    from ..ops.intra_batch import predict67, refs_blocks_grid, satd67
-    from ..ops.rd_cost import rd_cost
-    from ..ops.tables import device_tables
 
     def frames_combo(srcs, qps, lam, wts, mode_bits, refsrcs=None):
         # refsrcs: planes of srcs' shape the intra references are read from
         # (the pseudo-recon of inter slices); default srcs itself
-        F = srcs.shape[0]
-        vecs = []
-        for (w, h, grid) in classes:
-            tabs = device_tables(w, h, bitdepth, str(srcs.device))
-            refs, blocks = refs_blocks_grid(srcs, w, h, grid, refsrcs)
-            preds = predict67(refs, tabs)
-            satds = satd67(preds, blocks)
-            best, rdc, _satd = rd_cost(preds, blocks, satds, qps, lam, wts,
-                                       mode_bits, tabs, bitdepth)
-            vecs.append(best.to(torch.float32).reshape(F, -1))
-            vecs.append(rdc.reshape(F, -1))
-        return torch.cat(vecs, dim=1)
+        return _frames_search(classes, bitdepth, srcs,
+                              [(srcs.shape[0], qps, lam, wts)], mode_bits,
+                              refsrcs)
 
     return frames_combo
+
+
+def _frames_search(classes, bitdepth: int, srcs, groups, mode_bits,
+                   refsrcs=None, rough: bool = False, mip: bool = False):
+    """The frame search of F frames whose QPs may differ, one launch of
+    each kernel a class for all F frames (K4 and K6 once per group: their
+    QP is a scalar). classes: (w, h, grid) with grid static, or (w, h,
+    grid, xs, ys) with the block origins where grid is None (K12a per
+    plane) or with ``mip``. Per class: the references and blocks by K1 over
+    all F frames (K12a per plane without a grid), then K2 -> K3 -> K4, or
+    the K12c chain with ``rough``; with ``mip`` K10 per plane and K3/K4 on
+    its candidates. groups: [(n, qps, lam, wts), ...], consecutive runs of
+    srcs' frames that share qp_scaled, lambda and wts, n frames each.
+    Returns [F, total] float32: per class best [B], rd [B] (then the MIP
+    best [B] and cost [B])."""
+    from ..ops.intra_batch import (predict67, refs_blocks, refs_blocks_grid,
+                                   satd67)
+    from ..ops.tables import device_tables
+
+    F = srcs.shape[0]
+    dev = str(srcs.device)
+    vecs = []
+    for cl in classes:
+        w, h, grid = cl[:3]
+        tabs = device_tables(w, h, bitdepth, dev)
+        if grid is not None:
+            refs, blocks = refs_blocks_grid(srcs, w, h, grid, refsrcs)
+        else:
+            if refsrcs is not None:
+                raise ValueError("frames search: reference planes need a grid")
+            rb = [refs_blocks(srcs[f], cl[3], cl[4], w, h) for f in range(F)]
+            refs = torch.cat([r for (r, _b) in rb])
+            blocks = torch.cat([b for (_r, b) in rb])
+        if rough:
+            from ..ops.rd_cost import rough_refine
+            from ..ops.tables import rough_modes
+            m1 = rough_modes(dev)
+            best, rdc = _by_group(lambda r, b, qps, lam, wts: rough_refine(
+                r, b, qps, lam, wts, mode_bits, tabs, bitdepth, m1),
+                groups, refs, blocks)
+        else:
+            preds = predict67(refs, tabs)
+            best, rdc = _rd_by_group(preds, blocks, satd67(preds, blocks),
+                                     groups, mode_bits, tabs, bitdepth)
+        vecs += [best.to(torch.float32).reshape(F, -1), rdc.reshape(F, -1)]
+        if mip:
+            from ..ops.mip import mip_mode_count, mip_preds, mip_size_id
+            from ..ops.tables import mip_matrix, mip_mode_bits
+            mat = mip_matrix(mip_size_id(w, h), dev)
+            mp = torch.cat([mip_preds(srcs[f], cl[3], cl[4], w, h, bitdepth,
+                                      mat) for f in range(F)])
+            mbest, mcost = _rd_by_group(
+                mp, blocks, satd67(mp, blocks), groups,
+                mip_mode_bits(2 * mip_mode_count(w, h), dev), tabs, bitdepth)
+            vecs += [mbest.to(torch.float32).reshape(F, -1),
+                     mcost.reshape(F, -1)]
+    return torch.cat(vecs, dim=1)
+
+
+def _by_group(fn, groups, *rows):
+    """fn(*tensors, qps, lam, wts) -> (best, rd, ...) once per group
+    (groups as _frames_search's) on the rows of ``rows`` that belong to the
+    group's frames (the rows lie frame-major) -> (best, rd) over all rows."""
+    if len(groups) == 1:
+        _n, qps, lam, wts = groups[0]
+        return fn(*rows, qps, lam, wts)[:2]
+    per = rows[0].shape[0] // sum(g[0] for g in groups)
+    bests, rds = [], []
+    r0 = 0
+    for n, qps, lam, wts in groups:
+        sl = slice(r0, r0 + n * per)
+        best, rdc = fn(*(t[sl] for t in rows), qps, lam, wts)[:2]
+        bests.append(best)
+        rds.append(rdc)
+        r0 += n * per
+    return torch.cat(bests), torch.cat(rds)
+
+
+def _rd_by_group(preds, blocks, satds, groups, mode_bits, tabs,
+                 bitdepth: int):
+    """K4 (its QP is a scalar) once per group -> (best, rd)."""
+    from ..ops.rd_cost import rd_cost
+    return _by_group(lambda p, b, s, qps, lam, wts: rd_cost(
+        p, b, s, qps, lam, wts, mode_bits, tabs, bitdepth),
+        groups, preds, blocks, satds)
+
+
+def _pseudo_by_group(srcs, groups, bitdepth: int):
+    """K5 once per group (groups as _frames_search's): the group's frames
+    [n, H, W] as one plane of n*H rows (K5 codes each 16x16 tile on its
+    own, so the rows of one frame never reach another's) -> [F, H, W]."""
+    from ..ops.pseudo_recon import pseudo_recon
+    H, W = srcs.shape[1:]
+    parts = []
+    f0 = 0
+    for n, qps, _lam, _wts in groups:
+        parts.append(pseudo_recon(srcs[f0:f0 + n].reshape(n * H, W), qps,
+                                  bitdepth).reshape(n, H, W))
+        f0 += n
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def _get_inter_frame_combo_fn(classes, inter_classes, n_refs: int,
@@ -2130,20 +2218,37 @@ class SliceEncoder:
         # (e.g. 1080 -> 34 rows of 32)
         H, W = ctrl.in_height, ctrl.in_width
         H16, W16 = -(-H // 16) * 16, -(-W // 16) * 16
-        cache = getattr(self, "_src_dev", None)
-        if cache is None or cache[0] is not src_y:
-            src_scr = src_y if (H16 == H and W16 == W) \
-                else pad_plane(src_y, W16, H16)
-            self._src_dev = (src_y, self._to_device(src_scr, np.int32))
         classes = tuple((w_, h_, g) for (_k, w_, h_, _p, g) in entries)
         fn = _get_pframe_intra_combo_fn(classes, H16, W16, ctrl.bitdepth)
-        tabs = frame_tables(qp, str(self.device))
-        outs = fn(self._src_dev[1], ctrl.luma_qp_scaled(qp),
-                  float(np.float32(lam)), tabs["wts"], tabs["mode_bits"])
-        # the copy to the host is queued right behind the launches, so it
-        # does not wait for work queued later (in the two-in-flight
-        # pipeline, frame N-1's stage M+R)
-        return _fetch_async(outs)
+        qps, lam32 = ctrl.luma_qp_scaled(qp), float(np.float32(lam))
+
+        def src_scr():
+            return src_y if (H16 == H and W16 == W) \
+                else pad_plane(src_y, W16, H16)
+
+        def launch():
+            cache = getattr(self, "_src_dev", None)
+            if cache is None or cache[0] is not src_y:
+                self._src_dev = (src_y, self._to_device(src_scr(), np.int32))
+            tabs = frame_tables(qp, str(self.device))
+            outs = fn(self._src_dev[1], qps, lam32, tabs["wts"],
+                      tabs["mode_bits"])
+            # the copy to the host is queued right behind the launches, so
+            # it does not wait for work queued later (in the two-in-flight
+            # pipeline, frame N-1's stage M+R)
+            return _fetch_async(outs)
+
+        md = getattr(self, "_mesh_dispatch", None)
+        if md is None:
+            return launch()
+        # lockstep group dispatch (parallel.mesh): every closed-GOP run's
+        # screen of this step rides one batched launch per kernel; this
+        # one hook serves both callers (stage D's predispatch and the
+        # host-ME path without a pretoken)
+        flat = md.run(self._mesh_slot,
+                      ("pframe_intra", classes, H16, W16, ctrl.bitdepth),
+                      (src_scr(), qps, lam32, qp), lambda: launch()())
+        return lambda: flat
 
     def _to_device(self, a: np.ndarray, dtype=None) -> torch.Tensor:
         """A host array as a contiguous tensor on the encoder's device."""
@@ -3167,11 +3272,22 @@ class SliceEncoder:
         classes = tuple((w_, h_, g) for (_k, w_, h_, _p, g) in entries)
         fn = _get_frame_combo_fn(classes, ctrl.bitdepth)
         qp = self.frame_qp
-        tabs = frame_tables(qp, str(self.device))
-        outs = fn(self._to_device(src_y, np.int32), ctrl.luma_qp_scaled(qp),
-                  float(np.float32(qp_to_lambda(qp))), tabs["wts"],
-                  tabs["mode_bits"])
-        fetch = _fetch_async(outs)
+        qps = ctrl.luma_qp_scaled(qp)
+        lam32 = float(np.float32(qp_to_lambda(qp)))
+
+        def launch():
+            tabs = frame_tables(qp, str(self.device))
+            return _fetch_async(fn(self._to_device(src_y, np.int32), qps,
+                                   lam32, tabs["wts"], tabs["mode_bits"]))
+
+        md = getattr(self, "_mesh_dispatch", None)
+        if md is not None:
+            # lockstep group dispatch (parallel.mesh), as the P/B screen
+            flat = md.run(self._mesh_slot,
+                          ("frame_intra", classes, ctrl.bitdepth),
+                          (src_y, qps, lam32, qp), lambda: launch()())
+            return lambda: self._resolve_fused(ps, entries, flat)
+        fetch = launch()
         return lambda: self._resolve_fused(ps, entries, fetch())
 
     def encode_frame(self, fs: FrameState, src_planes: FramePlanes,

@@ -13,6 +13,9 @@ Every C entry takes its tensors as raw device pointers, enqueues its kernel
 on the stream it is given (PyTorch's current stream) without synchronising,
 and returns ``cudaGetLastError()``. ``LAUNCHES`` counts the successful
 launches per kernel, so a run can show that its path went through them.
+Building and loading hold one lock, so host threads that first need a
+kernel at the same time (the mesh encoders' runs, the CLI's ``--threads``)
+build each source once.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -100,11 +104,15 @@ SOURCE = {"refs_blocks": "refs_blocks_grid", "fwd_transform": "transform",
           "dequant_levels": "quant"}
 LAUNCHES = dict.fromkeys(SIGNATURES, 0)
 _LIBS: dict = {}
+# held while a source is built or a library loaded; the counts have their own
+_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -132,7 +140,13 @@ def lib_path(name: str) -> str:
 def build(names=None) -> dict:
     """Compile the listed kernels (default: all) that are not cached yet,
     one nvcc per source, all started together. Returns the seconds each
-    build took (0.0 when cached); raises with nvcc's output on failure."""
+    build took (0.0 when cached); raises with nvcc's output on failure.
+    Callers on other threads wait for a build in progress."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names) -> dict:
     names = list(dict.fromkeys(
         source_of(n) for n in (SIGNATURES if names is None else names)))
     todo = [n for n in names if not os.path.exists(lib_path(n))]
@@ -176,19 +190,24 @@ def build_log(name: str) -> str:
 
 
 def _load(name: str):
-    if name not in _LIBS:
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"kernel {name}: no CUDA device to launch on")
-        build([name])
-        lib = ctypes.CDLL(lib_path(name))
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _LIBS[name] = (fn, err)
-    return _LIBS[name]
+    found = _LIBS.get(name)
+    if found is not None:
+        return found
+    with _LOCK:
+        if name not in _LIBS:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"kernel {name}: no CUDA device to launch on")
+            build([name])
+            lib = ctypes.CDLL(lib_path(name))
+            fn = getattr(lib, name)
+            fn.argtypes = SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _LIBS[name] = (fn, err)
+        return _LIBS[name]
 
 
 def launch(name: str, device: torch.device, *args) -> None:
@@ -199,7 +218,8 @@ def launch(name: str, device: torch.device, *args) -> None:
     rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name}: {err(rc).decode()} (error {rc})")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

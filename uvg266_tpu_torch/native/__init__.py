@@ -11,6 +11,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -22,6 +23,7 @@ _SRCS = [os.path.join(_DIR, "entropy.cpp"), os.path.join(_DIR, "recon.cpp"),
          os.path.join(_DIR, "deblock.cpp"), os.path.join(_DIR, "tree.cpp"),
          os.path.join(_DIR, "sao.cpp"), os.path.join(_DIR, "inter.cpp")]
 _LIB = None
+_LIB_LOCK = threading.Lock()     # one build and load across host threads
 
 
 def _build_lib() -> str:
@@ -55,161 +57,167 @@ def _build_lib() -> str:
 
 
 def get_lib():
-    global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(_build_lib())
-        lib.ec_create.restype = ctypes.c_void_p
-        for name, argt in [
-            ("ec_free", [ctypes.c_void_p]),
-            ("ec_set_contexts", [ctypes.c_void_p] + [ctypes.c_void_p] * 4
-             + [ctypes.c_int]),
-            ("ec_get_contexts", [ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_void_p]),
-            ("ec_set_offsets", [ctypes.c_void_p, ctypes.c_void_p]),
-            ("ec_start", [ctypes.c_void_p, ctypes.c_int]),
-            ("ec_bin", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]),
-            ("ec_bin_ep", [ctypes.c_void_p, ctypes.c_int]),
-            ("ec_bins_ep", [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]),
-            ("ec_trm", [ctypes.c_void_p, ctypes.c_int]),
-            ("ec_finish", [ctypes.c_void_p]),
-            ("ec_trunc_bin", [ctypes.c_void_p, ctypes.c_uint32,
-                              ctypes.c_uint32]),
-            ("ec_put", [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]),
-            ("ec_coeff_remain", [ctypes.c_void_p, ctypes.c_uint32,
-                                 ctypes.c_int, ctypes.c_int]),
-            ("ec_ep_ex_golomb", [ctypes.c_void_p, ctypes.c_uint32,
-                                 ctypes.c_int]),
-            ("ec_unary_max_ep", [ctypes.c_void_p, ctypes.c_uint32,
-                                 ctypes.c_uint32]),
-            ("ec_copy_bytes", [ctypes.c_void_p, ctypes.c_void_p]),
-        ]:
-            getattr(lib, name).argtypes = argt
-            getattr(lib, name).restype = None
-        lib.ec_create.argtypes = []
-        lib.ec_num_bytes.argtypes = [ctypes.c_void_p]
-        lib.ec_num_bytes.restype = ctypes.c_int64
-        lib.ec_pending_bits.argtypes = [ctypes.c_void_p]
-        lib.ec_pending_bits.restype = ctypes.c_int
-        lib.ec_pending_data.argtypes = [ctypes.c_void_p]
-        lib.ec_pending_data.restype = ctypes.c_uint32
-        lib.ec_zerocount.argtypes = [ctypes.c_void_p]
-        lib.ec_zerocount.restype = ctypes.c_int
-        lib.ec_coeff_nxn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-        lib.ec_coeff_nxn.restype = ctypes.c_int32
-        lib.rc_set_dct2.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.rc_set_dct2.restype = None
-        lib.rc_recon_frame.argtypes = [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int] \
-            + [ctypes.c_void_p] * 4
-        lib.rc_recon_frame.restype = None
-        lib.rc_deblock_frame.argtypes = [ctypes.c_void_p] * 3 \
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14 \
-            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] \
-            + [ctypes.c_int] + [ctypes.c_void_p] * 2
-        lib.rc_deblock_frame.restype = None
-        lib.rc_set_scan.argtypes = [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p]
-        lib.rc_set_scan.restype = None
-        lib.tw_set_offsets.argtypes = [ctypes.c_void_p]
-        lib.tw_set_offsets.restype = None
-        lib.tw_set_scan.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                    ctypes.c_void_p]
-        lib.tw_set_scan.restype = None
-        lib.tw_write_intra_frame.argtypes = \
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
-            + [ctypes.c_void_p] * 4 \
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 9 + [ctypes.c_int]
-        lib.tw_write_intra_frame.restype = None
-        lib.tw_write_intra_wpp.argtypes = \
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] \
-            + [ctypes.c_void_p] * 4 \
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 9 + [ctypes.c_int]
-        lib.tw_write_intra_wpp.restype = None
-        lib.tw_write_frame.argtypes = \
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int] \
-            + [ctypes.c_void_p] * 4 \
-            + [ctypes.c_int] * 9 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p] * 9 + [ctypes.c_int]
-        lib.tw_write_frame.restype = None
-        lib.rc_sao_stats.argtypes = [ctypes.c_void_p] * 2 \
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
-        lib.rc_sao_stats.restype = None
-        lib.rc_sao_apply.argtypes = [ctypes.c_void_p] * 2 \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 \
-            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-        lib.rc_sao_apply.restype = None
-        lib.fi_finalize_frame.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2          # planes
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int]            # l0
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int]            # l1
-            + [ctypes.c_void_p] * 2                             # pocs
-            + [ctypes.c_void_p, ctypes.c_int]                   # uniq
-            + [ctypes.c_void_p] * 3                             # refmaps
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6        # tmvp
-            + [ctypes.c_int] * 9 + [ctypes.c_double]            # params
-            + [ctypes.c_int] * 2                                # wpp, threads
-            + [ctypes.c_void_p, ctypes.c_int]                   # in leaves
-            + [ctypes.c_void_p] * 5                             # out + coeff
-            + [ctypes.c_void_p] * 14                            # deblock maps
-            + [ctypes.c_void_p] * 3)                            # motion field
-        lib.fi_finalize_frame.restype = None
-        lib.fi_me_frame.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 2
-            + [ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-            + [ctypes.c_int] * 2 + [ctypes.c_double, ctypes.c_int]
-            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_void_p] * 2)
-        lib.fi_me_frame.restype = None
-        lib.fi_host_screen.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_double]
-            + [ctypes.c_void_p] * 2
-            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p])
-        lib.fi_host_screen.restype = None
-        lib.rc_sao_search.argtypes = [ctypes.c_void_p] * 6 \
-            + [ctypes.c_int] * 6 + [ctypes.c_double] + [ctypes.c_void_p] * 9
-        lib.rc_sao_search.restype = None
-        # upload DCT2 matrices + scan tables once
-        from ..ops.scan import cg_scan_table, coeff_scan_table
-        from ..ops.tr_matrices import DCT2 as _DCT2_T, get_matrix
-        for lg in (2, 3, 4, 5, 6):
-            m = np.ascontiguousarray(get_matrix(_DCT2_T, 1 << lg),
-                                     dtype=np.int16)
-            lib.rc_set_dct2(lg, m.ctypes.data)
-            _DCT_KEEP.append(m)
-        for lg in (2, 3, 4, 5):
-            sq = np.ascontiguousarray(coeff_scan_table(lg, lg),
-                                      dtype=np.int32)
-            cg = np.ascontiguousarray(cg_scan_table(lg, lg), dtype=np.int32)
-            lib.tw_set_scan(lg, sq.ctypes.data, cg.ctypes.data)
-            _DCT_KEEP.append(sq)
-            _DCT_KEEP.append(cg)
-        # rect scans for sign hiding on BT/TT-shaped TUs
-        for lw in (2, 3, 4, 5):
-            for lh in (2, 3, 4, 5):
-                sc = np.ascontiguousarray(coeff_scan_table(lw, lh),
-                                          dtype=np.int32)
-                lib.rc_set_scan(lw, lh, sc.ctypes.data)
-                _DCT_KEEP.append(sc)
-        toffs = np.array([OFF[n] for n in (
-            "split_flag", "qt_split_flag", "mtt_vertical", "mtt_binary",
-            "intra_luma_mpm_flag", "luma_planar", "chroma_pred",
-            "qt_cbf_cb", "qt_cbf_cr", "qt_cbf_luma",
-            "sao_merge_flag", "sao_type_idx",
-            "cu_skip_flag", "cu_pred_mode", "cu_merge_flag_ext",
-            "cu_merge_idx_ext", "inter_dir", "cu_ref_pic", "mvp_idx",
-            "cu_qt_root_cbf", "imv_flag", "cu_mvd")], dtype=np.int32)
-        lib.tw_set_offsets(toffs.ctypes.data)
-        _DCT_KEEP.append(toffs)
-        _LIB = lib
+        with _LIB_LOCK:
+            if _LIB is None:
+                _load_lib()
     return _LIB
+
+
+def _load_lib() -> None:
+    global _LIB
+    lib = ctypes.CDLL(_build_lib())
+    lib.ec_create.restype = ctypes.c_void_p
+    for name, argt in [
+        ("ec_free", [ctypes.c_void_p]),
+        ("ec_set_contexts", [ctypes.c_void_p] + [ctypes.c_void_p] * 4
+         + [ctypes.c_int]),
+        ("ec_get_contexts", [ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.c_void_p]),
+        ("ec_set_offsets", [ctypes.c_void_p, ctypes.c_void_p]),
+        ("ec_start", [ctypes.c_void_p, ctypes.c_int]),
+        ("ec_bin", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]),
+        ("ec_bin_ep", [ctypes.c_void_p, ctypes.c_int]),
+        ("ec_bins_ep", [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]),
+        ("ec_trm", [ctypes.c_void_p, ctypes.c_int]),
+        ("ec_finish", [ctypes.c_void_p]),
+        ("ec_trunc_bin", [ctypes.c_void_p, ctypes.c_uint32,
+                          ctypes.c_uint32]),
+        ("ec_put", [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]),
+        ("ec_coeff_remain", [ctypes.c_void_p, ctypes.c_uint32,
+                             ctypes.c_int, ctypes.c_int]),
+        ("ec_ep_ex_golomb", [ctypes.c_void_p, ctypes.c_uint32,
+                             ctypes.c_int]),
+        ("ec_unary_max_ep", [ctypes.c_void_p, ctypes.c_uint32,
+                             ctypes.c_uint32]),
+        ("ec_copy_bytes", [ctypes.c_void_p, ctypes.c_void_p]),
+    ]:
+        getattr(lib, name).argtypes = argt
+        getattr(lib, name).restype = None
+    lib.ec_create.argtypes = []
+    lib.ec_num_bytes.argtypes = [ctypes.c_void_p]
+    lib.ec_num_bytes.restype = ctypes.c_int64
+    lib.ec_pending_bits.argtypes = [ctypes.c_void_p]
+    lib.ec_pending_bits.restype = ctypes.c_int
+    lib.ec_pending_data.argtypes = [ctypes.c_void_p]
+    lib.ec_pending_data.restype = ctypes.c_uint32
+    lib.ec_zerocount.argtypes = [ctypes.c_void_p]
+    lib.ec_zerocount.restype = ctypes.c_int
+    lib.ec_coeff_nxn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    lib.ec_coeff_nxn.restype = ctypes.c_int32
+    lib.rc_set_dct2.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.rc_set_dct2.restype = None
+    lib.rc_recon_frame.argtypes = [ctypes.c_void_p] * 7 \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 4
+    lib.rc_recon_frame.restype = None
+    lib.rc_deblock_frame.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14 \
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    lib.rc_deblock_frame.restype = None
+    lib.rc_set_scan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p]
+    lib.rc_set_scan.restype = None
+    lib.tw_set_offsets.argtypes = [ctypes.c_void_p]
+    lib.tw_set_offsets.restype = None
+    lib.tw_set_scan.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                ctypes.c_void_p]
+    lib.tw_set_scan.restype = None
+    lib.tw_write_intra_frame.argtypes = \
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 9 + [ctypes.c_int]
+    lib.tw_write_intra_frame.restype = None
+    lib.tw_write_intra_wpp.argtypes = \
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 9 + [ctypes.c_int]
+    lib.tw_write_intra_wpp.restype = None
+    lib.tw_write_frame.argtypes = \
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 9 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p] * 9 + [ctypes.c_int]
+    lib.tw_write_frame.restype = None
+    lib.rc_sao_stats.argtypes = [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
+    lib.rc_sao_stats.restype = None
+    lib.rc_sao_apply.argtypes = [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    lib.rc_sao_apply.restype = None
+    lib.fi_finalize_frame.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2          # planes
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int]            # l0
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int]            # l1
+        + [ctypes.c_void_p] * 2                             # pocs
+        + [ctypes.c_void_p, ctypes.c_int]                   # uniq
+        + [ctypes.c_void_p] * 3                             # refmaps
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6        # tmvp
+        + [ctypes.c_int] * 9 + [ctypes.c_double]            # params
+        + [ctypes.c_int] * 2                                # wpp, threads
+        + [ctypes.c_void_p, ctypes.c_int]                   # in leaves
+        + [ctypes.c_void_p] * 5                             # out + coeff
+        + [ctypes.c_void_p] * 14                            # deblock maps
+        + [ctypes.c_void_p] * 3)                            # motion field
+    lib.fi_finalize_frame.restype = None
+    lib.fi_me_frame.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_double, ctypes.c_int]
+        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 2)
+    lib.fi_me_frame.restype = None
+    lib.fi_host_screen.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_double]
+        + [ctypes.c_void_p] * 2
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p])
+    lib.fi_host_screen.restype = None
+    lib.rc_sao_search.argtypes = [ctypes.c_void_p] * 6 \
+        + [ctypes.c_int] * 6 + [ctypes.c_double] + [ctypes.c_void_p] * 9
+    lib.rc_sao_search.restype = None
+    # upload DCT2 matrices + scan tables once
+    from ..ops.scan import cg_scan_table, coeff_scan_table
+    from ..ops.tr_matrices import DCT2 as _DCT2_T, get_matrix
+    for lg in (2, 3, 4, 5, 6):
+        m = np.ascontiguousarray(get_matrix(_DCT2_T, 1 << lg),
+                                 dtype=np.int16)
+        lib.rc_set_dct2(lg, m.ctypes.data)
+        _DCT_KEEP.append(m)
+    for lg in (2, 3, 4, 5):
+        sq = np.ascontiguousarray(coeff_scan_table(lg, lg),
+                                  dtype=np.int32)
+        cg = np.ascontiguousarray(cg_scan_table(lg, lg), dtype=np.int32)
+        lib.tw_set_scan(lg, sq.ctypes.data, cg.ctypes.data)
+        _DCT_KEEP.append(sq)
+        _DCT_KEEP.append(cg)
+    # rect scans for sign hiding on BT/TT-shaped TUs
+    for lw in (2, 3, 4, 5):
+        for lh in (2, 3, 4, 5):
+            sc = np.ascontiguousarray(coeff_scan_table(lw, lh),
+                                      dtype=np.int32)
+            lib.rc_set_scan(lw, lh, sc.ctypes.data)
+            _DCT_KEEP.append(sc)
+    toffs = np.array([OFF[n] for n in (
+        "split_flag", "qt_split_flag", "mtt_vertical", "mtt_binary",
+        "intra_luma_mpm_flag", "luma_planar", "chroma_pred",
+        "qt_cbf_cb", "qt_cbf_cr", "qt_cbf_luma",
+        "sao_merge_flag", "sao_type_idx",
+        "cu_skip_flag", "cu_pred_mode", "cu_merge_flag_ext",
+        "cu_merge_idx_ext", "inter_dir", "cu_ref_pic", "mvp_idx",
+        "cu_qt_root_cbf", "imv_flag", "cu_mvd")], dtype=np.int32)
+    lib.tw_set_offsets(toffs.ctypes.data)
+    _DCT_KEEP.append(toffs)
+    _LIB = lib
 
 
 _DCT_KEEP: list = []
