@@ -163,7 +163,30 @@ Phases, one line each (or a few), any failure exits non-zero:
  10. 192x128 clips encoded on the card (all-intra, LD, rdoq LD, dense RA,
      MIP, MTS, 10-bit LD, slow-tools RA, rough) decode through the port's oracle
      decoder, with their references, to the encoder's reconstruction;
- 11. a JSON line with each kernel's numbers, then the last line
+ 11. the presets and the host tools, each encode on the card held against
+     the port's CPU path (the kernels' plain versions) frame by frame:
+     access units byte-identical, recon planes equal (SHA-256 of their
+     bytes). The CPU half runs in one child process started before phase
+     2, on the cores the build and the card's phases leave idle;
+  11a. every preset (make_config(preset) at 832x480, the clip's first
+     frames, low delay at the preset's GOP: 3 frames for ultrafast..slow,
+     2 for slower..placebo): wall fps, device busy time over a second
+     encode (slower..placebo: one encode under the profiler gives both),
+     the launches of every kernel, held to the path's counts (the
+     fused search and the host-ME screen: K1-K4 once per class and frame,
+     the BT/TT classes under slow, K5 per P frame, K8 per P frame with
+     inter leaves; with MTS, slower..placebo, search_blocks and
+     search_combined per class, K11 up to 32x32, K9a/K9b/K6 per inter
+     class and reference);
+  11b. the host tools no preset turns on (ALF 2 all-intra and ALF 1 LD,
+     2x2 tiles all-intra and LD, 2 slices, LMCS all-intra and LD, IBC,
+     transform skip, the default scaling lists, rate control (R-lambda
+     and OBA), VAQ, AMVR with TMVP, RA GOP 8, 4:0:0), 3 frames at 136x72
+     each, with the same launch checks;
+  11c. the Config defaults (LD GOP 4, rdoq on) at 72x40: the 64x64 class
+     has no position and is skipped; every wrapper refuses an empty batch,
+     so the encode shows that none was asked for one;
+ 12. a JSON line with each kernel's numbers, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports nothing of JAX or the JAX package.
@@ -171,7 +194,9 @@ It imports nothing of JAX or the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -187,6 +212,36 @@ TOOL_FRAMES = 3                    # the MIP and MTS paths (Python finalize)
 LD10_FRAMES = 5                    # the 10-bit LD path: IDR + 4 P/B
 RDOQ_FRAMES = 5                    # the rdoq-on LD path: IDR + 4 P/B
 ROUGH_FRAMES = 3                   # the rough all-intra path
+# phase 11a: each preset's LD frames (slower..placebo run the Python
+# finalize with every intra tool: 2 frames)
+SLOW_PRESETS = ("slower", "veryslow", "placebo")
+PRESET_FRAMES, SLOW_PRESET_FRAMES = 3, 2
+TOOL_W, TOOL_H, TOOL_CLIP = 136, 72, 3     # phase 11b
+SMALL_W, SMALL_H = 72, 40          # phase 11c: no 64x64 block inside
+CHILD_THREADS = 4                  # the CPU half's intra-op threads
+AI = {"gop_len": 0, "intra_period": 1}
+# phase 11b: the host tools no preset turns on
+# (tests/test_torch_e2e_host_tools.py), the other options at the Config
+# defaults (low delay GOP 4, rdoq on, WPP on); 4:0:0 is input_format 0
+HOST_TOOLS = {
+    "alf2 all-intra": {**AI, "alf_type": 2},
+    "alf1 LD": {"alf_type": 1},
+    "tiles 2x2 all-intra": {**AI, "tiles_width_count": 2,
+                            "tiles_height_count": 2},
+    "tiles 2x2 LD": {"tiles_width_count": 2, "tiles_height_count": 2},
+    "slices 2": {"slices": 2},
+    "LMCS all-intra": {**AI, "lmcs_enable": True},
+    "LMCS LD": {"lmcs_enable": True},
+    "IBC": {"ibc": 1},
+    "transform skip": {"trskip_enable": True},
+    "scaling list 2": {"scaling_list": 2},
+    "RC lambda": {"target_bitrate": 200000, "rc_algorithm": "lambda"},
+    "RC OBA": {"target_bitrate": 200000, "rc_algorithm": "oba"},
+    "VAQ": {"vaq": 1},
+    "AMVR TMVP": {"amvr": 1, "tmvp_enable": True},
+    "RA GOP 8": {"gop_len": 8, "gop_lowdelay": False},
+    "4:0:0": {"input_format": 0},
+}
 R = 16                             # full-pel search range of the dense path
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 OPS_PER_S = 67e12             # H100 SXM float32 rate outside the tensor cores,
@@ -308,8 +363,16 @@ MAIN_PATH = {**dict.fromkeys(INTRA_KERNELS, "all-intra"),
              **dict.fromkeys(TR_KERNELS, "transform round trip")}
 
 
+# the child processes started here (the CPU half of phase 11), stopped on
+# failure
+_CHILDREN: list = []
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
+    for pool in _CHILDREN:
+        pool.terminate()
+        pool.join()
     sys.exit(1)
 
 
@@ -389,14 +452,67 @@ def clip_for(cfg, clip):
 
 def search_classes(ps):
     """(w, h, positions) of every class PartitionSearch.search gives its
-    per-class function: the lattice shapes, then the TT middle children."""
-    out = [(w, h, ps._positions(max(w, h), w, h)[0]) for (w, h) in ps._shapes()]
-    for s_ in ps.tt_parents:
-        for vert in (False, True):
-            pos = ps._tt_mid_positions(s_, vert)
-            if pos:
-                out.append(((s_ >> 1), s_, pos) if vert else (s_, (s_ >> 1), pos))
-    return out
+    per-class function: the lattice shapes, then the TT middle children,
+    each with a block inside the frame."""
+    return [(w, h, pos) for (_k, w, h, pos, _s) in ps._classes() if pos]
+
+
+def job_config(Config, make_config, opts, w, h):
+    """A phase-11 configuration: a preset's name or Config options."""
+    if isinstance(opts, str):
+        return make_config(opts, width=w, height=h)
+    return Config(width=w, height=h, **opts)
+
+
+def job_clip(cfg, n):
+    """The clip's first n frames at cfg's size and bit depth (luma only at
+    4:0:0)."""
+    frames = clip_for(cfg, synth_clip(cfg.width, cfg.height, n))
+    if cfg.input_format == 0:
+        frames = [(f[0], None, None) for f in frames]
+    return frames
+
+
+def phase11_jobs(presets):
+    """(label, preset or options, width, height, frames) of every encode of
+    phase 11."""
+    jobs = [(f"preset {p}", p, W, H,
+             SLOW_PRESET_FRAMES if p in SLOW_PRESETS else PRESET_FRAMES)
+            for p in presets]
+    jobs += [(f"host tool {k}", v, TOOL_W, TOOL_H, TOOL_CLIP)
+             for k, v in HOST_TOOLS.items()]
+    jobs.append((f"LD {SMALL_W}x{SMALL_H}", {}, SMALL_W, SMALL_H, 3))
+    return jobs
+
+
+def recon_digest(rec) -> str:
+    """SHA-256 of a recon's planes with their dtypes and shapes."""
+    d = hashlib.sha256()
+    for p in (rec.y, rec.u, rec.v):
+        if p is None:
+            d.update(b"none")
+        else:
+            d.update(f"{p.dtype}{p.shape}".encode())
+            d.update(np.ascontiguousarray(p).tobytes())
+    return d.hexdigest()
+
+
+def cpu_encodes(jobs):
+    """The port's CPU path (the kernels' plain versions) for every job:
+    {label: [(access unit, recon digest) per frame]} and the seconds it
+    took. Runs in a child process while the card's phases run."""
+    import torch
+    torch.set_num_threads(CHILD_THREADS)
+    from uvg266_tpu_torch.cfg import Config, make_config
+    from uvg266_tpu_torch.control.encoder import Encoder, FramePlanes
+    t0 = time.perf_counter()
+    out = {}
+    for label, opts, w, h, n in jobs:
+        cfg = job_config(Config, make_config, opts, w, h)
+        got = encode(Encoder(cfg, device="cpu"), FramePlanes,
+                     job_clip(cfg, n))
+        out[label] = [(o[0], recon_digest(o[1])) for o in got]
+    return out, time.perf_counter() - t0
 
 
 def dense_config(Config, w=W, h=H):
@@ -898,7 +1014,7 @@ def main() -> int:
         fail("no CUDA device: torch.cuda.is_available() is false")
     import uvg266_tpu_torch  # noqa: F401  (sets the TF32 policy)
     from uvg266_tpu_torch import kernels
-    from uvg266_tpu_torch.cfg import Config
+    from uvg266_tpu_torch.cfg import PRESETS, Config, make_config
     from uvg266_tpu_torch.consts import SliceType
     from uvg266_tpu_torch.control.encoder import (Encoder, FramePlanes,
                                                   RefLists, SliceEncoder)
@@ -923,6 +1039,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card_kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
 
     # --- 1. the card --------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -935,6 +1052,13 @@ def main() -> int:
     print(f"phase 1 card: {card_kind}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, count {torch.cuda.device_count()}",
           flush=True)
+
+    # the CPU half of phase 11 in a child process, on the cores the build
+    # and the card's phases leave idle
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    _CHILDREN.append(pool)
+    cpu_half = pool.apply_async(cpu_encodes, (phase11_jobs(PRESETS),))
+    t_child = time.perf_counter()
 
     # --- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2239,12 +2363,17 @@ def main() -> int:
                          every=True), flush=True)
 
     # --- 8. the card against the CPU ----------------------------------------
-    def card_vs_cpu(path, config, got, n, enc_clip):
-        ref = encode(Encoder(config, device="cpu"), FramePlanes, enc_clip)
+    def card_vs_cpu(path, config, got, n, enc_clip=None, ref=None):
+        """The card's first n frames against the CPU path's: ref, its
+        (access unit, recon digest) per frame from the child process, or
+        encoded here from enc_clip."""
+        if ref is None:
+            ref = [(o[0], recon_digest(o[1])) for o in encode(
+                Encoder(config, device="cpu"), FramePlanes, enc_clip)]
+        if len(ref) < n:
+            fail(f"{path}: the CPU path gave {len(ref)} of {n} frames")
         for i in range(n):
-            if got[i][0] != ref[i][0] or not all(
-                    np.array_equal(getattr(got[i][1], p), getattr(ref[i][1], p))
-                    for p in ("y", "u", "v")):
+            if got[i][0] != ref[i][0] or recon_digest(got[i][1]) != ref[i][1]:
                 fail(f"{path}: coded frame {i} (poc {got[i][2].poc}) differs "
                      "between the card and the CPU")
         return ", ".join(f"{SLICE[got[i][2].slicetype]} poc {got[i][2].poc} "
@@ -2316,7 +2445,8 @@ def main() -> int:
         torch.cuda.synchronize()
         mwall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        n_cls = len(menc._search_classes()[1])
+        n_cls = sum(1 for cl in menc._search_classes()[1]
+                    if cl["positions"])
         batches = len(mclip) // 2
         expect(f"mesh {label}", launches,
                {k: v * n_cls * batches for k, v in per_batch.items()})
@@ -2577,7 +2707,101 @@ def main() -> int:
               + "".join(SLICE[o[2].slicetype] for o in sout)
               + ") decode to the encoder's recon", flush=True)
 
-    # --- 11. results --------------------------------------------------------
+    # --- 11. the presets and the host tools ---------------------------------
+    t0 = time.perf_counter()
+    try:
+        cpu_ref, cpu_secs = cpu_half.get(timeout=600)
+    except multiprocessing.TimeoutError:
+        fail("phase 11: the CPU half did not finish within 600 s")
+    except Exception as e:        # raised in the child, re-raised by get()
+        fail(f"phase 11: the CPU half failed: {e!r}")
+    pool.close()
+    pool.join()
+    print(f"phase 11 CPU half: {len(cpu_ref)} encodes in a child process "
+          f"({CHILD_THREADS} threads) in {cpu_secs:.3f} s, started "
+          f"{t0 - t_child:.3f} s before this phase, waited "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    def fused_counts(penc, pouts, k8):
+        """Launches of a path whose frames all take the fused search: K1-K4
+        once per class and frame (the I frames' search, the P/B frames'
+        intra screen), K5 once per P/B frame, K8 once per P/B frame with
+        inter leaves (k8)."""
+        n_p = sum(1 for o in pouts if o[2].slicetype != SliceType.I)
+        return {**dict.fromkeys(INTRA_KERNELS, n_classes(penc) * len(pouts)),
+                "pseudo_recon": n_p, "leaf_qpel": k8}
+
+    def phase11_run(label, pcfg, n, profiled=False):
+        """One phase-11 encode on the card with its launch checks, held
+        against the CPU half's frames -> (encoder, outputs, wall s, launches,
+        clip, card-vs-CPU summary, the profiler's line or None). profiled:
+        the encode runs under the profiler, its wall included."""
+        pclip = [FramePlanes(*f) for f in job_clip(pcfg, n)]
+        got = {}
+
+        def run():
+            got["run"] = counting_k8(lambda: timed_encode(pcfg, pclip))
+        busy = busy_share(torch, run) if profiled else run()
+        (penc, pouts, pwall, launches), k8 = got["run"]
+        native(label, penc)
+        if len(pouts) != n:
+            fail(f"{label} returned {len(pouts)} of {n} frames")
+        for au, rec, _fs, _refs, _src in pouts:
+            if not au or rec.y.shape != (pcfg.height, pcfg.width):
+                fail(f"{label} produced an empty AU or a malformed recon")
+        if pcfg.mts in (1, 3) or not getattr(penc.slice_enc,
+                                             "_fused_entries_c", None):
+            # MTS, or a class with no position (the fused search declines):
+            # search_blocks / dispatch_blocks and search_combined per class
+            want = combined_counts(penc, pouts, pcfg)
+        else:
+            want = fused_counts(penc, pouts, k8)
+        expect(label, launches, want)
+        msg = card_vs_cpu(label, pcfg, pouts, n, ref=cpu_ref[label])
+        return penc, pouts, pwall, launches, pclip, msg, busy
+
+    # 11a: every preset at 832x480; slower..placebo (40-50 s an encode on
+    # an H100 80GB HBM3 at 700 W) run once, under the profiler (there its
+    # wall came within 4% of an unprofiled encode's), the others twice
+    for preset in PRESETS:
+        slow = preset in SLOW_PRESETS
+        n = SLOW_PRESET_FRAMES if slow else PRESET_FRAMES
+        pcfg = make_config(preset, width=W, height=H)
+        penc, pouts, pwall, launches, pclip, msg, busy = phase11_run(
+            f"preset {preset}", pcfg, n, profiled=slow)
+        print(f"phase 11a preset {preset}: {n} frames {W}x{H} QP{pcfg.qp} "
+              f"({''.join(SLICE[o[2].slicetype] for o in pouts)}) in "
+              f"{pwall:.3f} s = {n / pwall:.3f} fps wall"
+              + (" (profiled)" if slow else "") + ", "
+              f"{sum(len(o[0]) for o in pouts)} bytes, card = CPU ({msg}), "
+              "launches " + json.dumps(
+                  {k: v for k, v in launches.items() if v}), flush=True)
+        print(busy or busy_share(torch, lambda: encode(
+            Encoder(pcfg, device=dev), FramePlanes, pclip)), flush=True)
+
+    # 11b: the host tools at 136x72 (the plane pads to 144x80)
+    msg = []
+    for tool, opts in HOST_TOOLS.items():
+        pcfg = Config(width=TOOL_W, height=TOOL_H, **opts)
+        penc, pouts, pwall, launches, _c, m, _b = phase11_run(
+            f"host tool {tool}", pcfg, TOOL_CLIP)
+        msg.append(f"{tool} ({''.join(SLICE[o[2].slicetype] for o in pouts)}"
+                   f", {sum(len(o[0]) for o in pouts)} B, K1-K4 "
+                   f"{launches['predict67']}, K5 {launches['pseudo_recon']}"
+                   f", K8 {launches['leaf_qpel']})")
+    print(f"phase 11b host tools at {TOOL_W}x{TOOL_H}, {TOOL_CLIP} frames "
+          "each, card = CPU: " + "; ".join(msg), flush=True)
+
+    # 11c: under 64 samples the 64x64 class has no position and is skipped
+    # (every wrapper refuses an empty batch)
+    pcfg = Config(width=SMALL_W, height=SMALL_H)
+    penc, pouts, pwall, launches, _c, m, _b = phase11_run(
+        f"LD {SMALL_W}x{SMALL_H}", pcfg, 3)
+    print(f"phase 11c LD {SMALL_W}x{SMALL_H} (Config defaults): card = CPU "
+          f"({m}), launches " + json.dumps(
+              {k: v for k, v in launches.items() if v}), flush=True)
+
+    # --- 12. results --------------------------------------------------------
     rows = []
     for name in REPLACES:
         t_bytes = bytes_[name] / HBM_BYTES_PER_S
@@ -2604,6 +2828,8 @@ def main() -> int:
         if name == "rough_refine":
             # the row is the chain's; its two selection stages alone
             rows[-1]["stages"] = k12c_stages
+    print(f"phase 12 results: the smoke took {time.perf_counter() - t_start:.3f}"
+          " s from phase 1", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind,

@@ -3096,46 +3096,8 @@ class SliceEncoder:
         fused = self._dispatch_frame_fused(ps, src_y)
         if fused is not None:
             return fused
-        pend = []
-        for (w_, h_) in ps._shapes():
-            positions, gw, gh = ps._positions(max(w_, h_), w_, h_)
-            pend.append((w_, h_, positions, gw, gh,
-                         self.dispatch_blocks(src_y, w_, h_, positions)))
-        tt_pend = []
-        for s in ps.tt_parents:
-            for vert in (False, True):
-                w_, h_ = ((s >> 1), s) if vert else (s, (s >> 1))
-                positions = ps._tt_mid_positions(s, vert)
-                if positions:
-                    tt_pend.append((s, vert, positions,
-                                    self.dispatch_blocks(src_y, w_, h_,
-                                                         positions)))
-
-        def resolve():
-            import numpy as _np
-            from .partition import INF
-            pres_all = _fetch_all(
-                [rsv for (*_ign, rsv) in pend]
-                + [rsv for (*_ign, rsv) in tt_pend])
-            pres = pres_all[:len(pend)]
-            tt_pres = pres_all[len(pend):]
-            cost, mode = {}, {}
-            for (w_, h_, positions, gw, gh, rsv), pre in zip(pend, pres):
-                descs, costs_arr = rsv(pre=pre)
-                c = _np.full((gh, gw), INF)
-                m = {}
-                for k, (x, y) in enumerate(positions):
-                    c[y // h_, x // w_] = costs_arr[k]
-                    m[(x, y)] = descs[k]
-                cost[(w_, h_)] = c
-                mode[(w_, h_)] = m
-            for (s, vert, positions, rsv), pre in zip(tt_pend, tt_pres):
-                descs, costs_arr = rsv(pre=pre)
-                ps._store_tt(cost, mode, s, vert, positions,
-                             descs, costs_arr)
-            return ps._decide(cost, mode)
-
-        return resolve
+        return ps.dispatch_async(
+            lambda ww, hh, pos: self.dispatch_blocks(src_y, ww, hh, pos))
 
     def _inter_entries(self, entries):
         """The entries of _fused_entries that get inter candidates: the
@@ -3396,10 +3358,9 @@ class SliceEncoder:
                 # else async per-class dispatches
                 self.frame_qp = fs.qp
                 fused = self._dispatch_frame_fused(ps, src.y)
-                ctus = fused() if fused is not None else ps.search_async(
-                    src.y,
+                ctus = (fused or ps.dispatch_async(
                     lambda ww, hh, pos: self.dispatch_blocks(src.y, ww, hh,
-                                                             pos))
+                                                             pos)))()
             elif is_intra_slice:
                 fn = lambda ww, hh, pos: self.search_blocks(src.y, ww, hh, pos)
                 ctus = ps.search(src.y, fn)

@@ -119,89 +119,86 @@ class PartitionSearch:
                                  else (x, y + (s >> 2)))
         return positions
 
-    def search(self, src_y: np.ndarray, search_fn) -> list[CtuNode]:
-        """search_fn(w, h, positions) -> (modes, costs) for aligned blocks.
-
-        positions: list of (x, y). Returns the chosen CTU trees with
-        leaf.cu_mode set.
-        """
-        cost = {}
-        mode = {}
+    def _classes(self):
+        """Every class of the lattice in dispatch order: (key, w, h,
+        positions, (gh, gw)). key is (w, h) for a class on the regular
+        grid, ("tth" | "ttv", s) for the middle children of TT splits of
+        s x s parents; (gh, gw) is the shape of its cost grid."""
+        fw, fh = self.ctrl.in_width, self.ctrl.in_height
+        out = []
         for (w, h) in self._shapes():
             positions, gw, gh = self._positions(max(w, h), w, h)
-            descs, costs_arr = search_fn(w, h, positions)
-            c = np.full((gh, gw), INF)
-            m = {}
-            for k, (x, y) in enumerate(positions):
-                c[y // h, x // w] = costs_arr[k]
-                m[(x, y)] = descs[k]
-            cost[(w, h)] = c
-            mode[(w, h)] = m
+            out.append(((w, h), w, h, positions, (gh, gw)))
         for s in self.tt_parents:
             for vert in (False, True):
                 w, h = ((s >> 1), s) if vert else (s, (s >> 1))
-                positions = self._tt_mid_positions(s, vert)
-                if not positions:
-                    continue
-                descs, costs_arr = search_fn(w, h, positions)
-                self._store_tt(cost, mode, s, vert, positions,
-                               descs, costs_arr)
-        return self._decide(cost, mode)
+                out.append((("ttv" if vert else "tth", s), w, h,
+                            self._tt_mid_positions(s, vert),
+                            (-(-fh // s), -(-fw // s))))
+        return out
 
-    def _store_tt(self, cost, mode, s, vert, positions, descs, costs_arr):
-        gh = -(-self.ctrl.in_height // s)
-        gw = -(-self.ctrl.in_width // s)
-        key = ("ttv" if vert else "tth", s)
-        c = np.full((gh, gw), INF)
+    @staticmethod
+    def _store(cost, mode, key, w, h, positions, shape, descs, costs_arr):
+        """A class's costs on its grid (INF where no block was searched)
+        and its descs by position."""
+        c = np.full(shape, INF)
         m = {}
         for k, (x, y) in enumerate(positions):
-            px, py = (x - (s >> 2), y) if vert else (x, y - (s >> 2))
-            c[py // s, px // s] = costs_arr[k]
+            if key[0] == "ttv":     # a middle child: its TT parent's cell
+                s = key[1]
+                c[y // s, (x - (s >> 2)) // s] = costs_arr[k]
+            elif key[0] == "tth":
+                s = key[1]
+                c[(y - (s >> 2)) // s, x // s] = costs_arr[k]
+            else:
+                c[y // h, x // w] = costs_arr[k]
             m[(x, y)] = descs[k]
         cost[key] = c
         mode[key] = m
 
-    def search_async(self, src_y: np.ndarray, dispatch_fn) -> list[CtuNode]:
-        """Like search(), but dispatch_fn(w, h, positions) returns a
-        resolve() thunk: all size classes are dispatched to the device
-        back-to-back before any result is awaited (JAX async dispatch),
-        removing the per-size host sync bubbles."""
-        pend = []
-        for (w, h) in self._shapes():
-            positions, gw, gh = self._positions(max(w, h), w, h)
-            pend.append((w, h, positions, gw, gh,
-                         dispatch_fn(w, h, positions)))
-        tt_pend = []
-        for s in self.tt_parents:
-            for vert in (False, True):
-                w, h = ((s >> 1), s) if vert else (s, (s >> 1))
-                positions = self._tt_mid_positions(s, vert)
-                if positions:
-                    tt_pend.append((s, vert, positions,
-                                    dispatch_fn(w, h, positions)))
-        from .encoder import _fetch_all
-        rsv = [r for (*_ign, r) in pend] + [r for (*_ign, r) in tt_pend]
-        pres_all = _fetch_all(rsv)
-        pres = pres_all[:len(pend)]
-        tt_pres = pres_all[len(pend):]
+    def search(self, src_y: np.ndarray, search_fn) -> list[CtuNode]:
+        """search_fn(w, h, positions) -> (modes, costs) for aligned blocks.
+
+        positions: list of (x, y). Returns the chosen CTU trees with
+        leaf.cu_mode set. A class with no block fully inside the frame
+        (64x64 below 64 samples) is not searched: its costs stay INF.
+        """
         cost = {}
         mode = {}
-        for (w, h, positions, gw, gh, resolve), pre in zip(pend, pres):
-            descs, costs_arr = resolve(pre=pre) if pre is not None \
-                else resolve()
-            c = np.full((gh, gw), INF)
-            m = {}
-            for k, (x, y) in enumerate(positions):
-                c[y // h, x // w] = costs_arr[k]
-                m[(x, y)] = descs[k]
-            cost[(w, h)] = c
-            mode[(w, h)] = m
-        for (s, vert, positions, resolve), pre in zip(tt_pend, tt_pres):
-            descs, costs_arr = resolve(pre=pre) if pre is not None \
-                else resolve()
-            self._store_tt(cost, mode, s, vert, positions,
-                           descs, costs_arr)
+        for key, w, h, positions, shape in self._classes():
+            descs, costs_arr = search_fn(w, h, positions) if positions \
+                else ((), ())
+            self._store(cost, mode, key, w, h, positions, shape, descs,
+                        costs_arr)
         return self._decide(cost, mode)
+
+    def dispatch_async(self, dispatch_fn):
+        """Dispatch every class at once: dispatch_fn(w, h, positions)
+        returns a resolve() thunk, and all classes go to the device back to
+        back before any result is awaited, with no per-class host sync.
+        Returns resolve() -> the CTU trees, which fetches every class in
+        one copy. A class with no position is not dispatched (its costs
+        stay INF), so no launch sees an empty batch."""
+        pend = [(key, w, h, positions, shape,
+                 dispatch_fn(w, h, positions) if positions else None)
+                for key, w, h, positions, shape in self._classes()]
+
+        def resolve():
+            from .encoder import _fetch_all
+            pres = iter(_fetch_all([p[5] for p in pend if p[5] is not None]))
+            cost = {}
+            mode = {}
+            for key, w, h, positions, shape, rsv in pend:
+                descs, costs_arr = ((), ())
+                if rsv is not None:
+                    pre = next(pres)
+                    descs, costs_arr = rsv(pre=pre) if pre is not None \
+                        else rsv()
+                self._store(cost, mode, key, w, h, positions, shape, descs,
+                            costs_arr)
+            return self._decide(cost, mode)
+
+        return resolve
 
     def dp_choice(self, cost) -> dict:
         """The bottom-up DP sweep of _decide, returning the per-size

@@ -222,6 +222,15 @@ def launch(name: str, device: torch.device, *args) -> None:
         LAUNCHES[name] += 1
 
 
+def check_batch(name: str, n: int) -> None:
+    """Refuse an empty batch on every device: a launch over zero blocks is
+    an invalid configuration on the card, so no wrapper returns quietly
+    there; callers drop a size class with no position before any launch
+    (control/partition.py)."""
+    if n <= 0:
+        raise ValueError(f"{name}: empty batch ({n} blocks)")
+
+
 def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """The one CUDA device all ``tensors`` lie on, contiguous; raises
     otherwise (a wrapper never falls back to its plain version)."""

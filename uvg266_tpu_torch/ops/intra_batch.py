@@ -432,6 +432,7 @@ def refs_blocks_grid(src: torch.Tensor, w: int, h: int, grid,
     ``refsrc``, when given, must have src's shape."""
     if refsrc is not None and refsrc.shape != src.shape:
         raise ValueError("refs_blocks_grid: refsrc must have src's shape")
+    kernels.check_batch("refs_blocks_grid", int(grid[4]) * int(grid[5]))
     if src.device.type == "cpu":
         return refs_blocks_grid_plain(src, w, h, grid, refsrc)
     rsrc = src if refsrc is None else refsrc
@@ -494,6 +495,7 @@ def refs_blocks_plain(src: torch.Tensor, xs, ys, w: int, h: int):
 
 def refs_blocks(src: torch.Tensor, xs, ys, w: int, h: int):
     """K12a: refs_blocks_plain on the CPU, the CUDA kernel on the card."""
+    kernels.check_batch("refs_blocks", len(xs))
     if src.device.type == "cpu":
         return refs_blocks_plain(src, xs, ys, w, h)
     dev = kernels.check_cuda("refs_blocks", src)
@@ -609,6 +611,7 @@ def predict67(refs: torch.Tensor, tables: dict,
     ``tables["desc"]`` (ops.tables.mode_descriptors), not from the
     per-sample tables. On the card a mode subset ``modes`` is not read back
     to be checked: it must start with 0, 1 and list modes 0..66."""
+    kernels.check_batch("predict67", refs.shape[0])
     if refs.device.type == "cpu":
         return predict67_plain(refs, tables, modes)
     dev = kernels.check_cuda("predict67", refs, tables["desc"],
@@ -682,6 +685,7 @@ def predict_modes(refs: torch.Tensor, modes: torch.Tensor,
     The kernel loads only the reference samples ``tables["reach"]`` names
     (ops.tables.mode_reach) and computes each slot from the descriptor of
     its clamped mode in that copy (compact_desc_host)."""
+    kernels.check_batch("predict_modes", refs.shape[0])
     if refs.device.type == "cpu":
         return predict_modes_plain(refs, modes, tables)
     dev = kernels.check_cuda("predict_modes", refs, modes)
@@ -734,6 +738,7 @@ def satd67_plain(preds: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 
 def satd67(preds: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """K3: satd67_plain on the CPU, the CUDA kernel on the card."""
+    kernels.check_batch("satd67", preds.shape[0])
     if preds.device.type == "cpu":
         return satd67_plain(preds, src)
     dev = kernels.check_cuda("satd67", preds, src)

@@ -132,6 +132,7 @@ def fullpel_search(ref: torch.Tensor, blocks: torch.Tensor, xs: torch.Tensor,
     """K9a: fullpel_search_plain on the CPU, the CUDA kernel on the card.
     The kernel's exact sums are uint32: h * w * (2^bitdepth - 1)^2 must be
     below 2^32 (a 64x64 block at 10 bits is)."""
+    kernels.check_batch("fullpel_search", blocks.shape[0])
     if ref.device.type == "cpu":
         return fullpel_search_plain(ref, blocks, xs, ys, r, pen)
     dev = kernels.check_cuda("fullpel_search", ref, blocks, xs, ys, pen)
@@ -199,6 +200,7 @@ def frac_search(ref: torch.Tensor, blocks: torch.Tensor, xs: torch.Tensor,
     winner_only: the second output is the winning offset's prediction
     [B, h, w] (frac_search_plain's preds gathered at best) in place of all
     49 [B, 49, h, w]."""
+    kernels.check_batch("frac_search", blocks.shape[0])
     if ref.device.type == "cpu":
         best, preds, costs = frac_search_plain(ref, blocks, xs, ys, mvx, mvy,
                                                fpen, bitdepth)

@@ -194,6 +194,8 @@ def frame_inter(src: torch.Tensor, ref_pad: torch.Tensor, pen, bits_tab,
         if any(v % TILE for v in (w, h, *grid[:4])):
             raise ValueError("frame_inter: class sizes and grids must be "
                              "multiples of 8")
+    kernels.check_batch("frame_inter", sum(int(g[4]) * int(g[5])
+                                           for (_w, _h, g) in classes))
     if src.device.type == "cpu":
         return frame_inter_plain(src, ref_pad, pen, bits_tab, classes, r)
     dev = kernels.check_cuda("frame_inter", src, ref_pad, pen, bits_tab)
@@ -411,6 +413,7 @@ def leaf_qpel(windows: torch.Tensor, blocks: torch.Tensor,
             or tuple(leaf_ids.shape) != (nt,) or pen.numel() != 49):
         raise ValueError("leaf_qpel: windows [nt, 18, 18], blocks [nt, 8, 8],"
                          " leaf_ids [nt], pen [49]")
+    kernels.check_batch("leaf_qpel", min(nt, n_leaves))
     if windows.device.type == "cpu":
         return leaf_qpel_plain(windows, blocks, leaf_ids, n_leaves, pen,
                                bitdepth)

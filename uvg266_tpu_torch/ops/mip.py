@@ -237,6 +237,7 @@ def mip_preds_seg(src: torch.Tensor, xs, ys, w: int, h: int,
 def mip_preds(src: torch.Tensor, xs, ys, w: int, h: int, bitdepth: int,
               mat: torch.Tensor) -> torch.Tensor:
     """K10: mip_preds_plain on the CPU, the CUDA kernel on the card."""
+    kernels.check_batch("mip_preds", len(xs))
     if src.device.type == "cpu":
         return mip_preds_plain(src, xs, ys, w, h, bitdepth, mat)
     dev = kernels.check_cuda("mip_preds", src, mat)

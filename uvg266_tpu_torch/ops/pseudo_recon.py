@@ -209,6 +209,7 @@ def pseudo_recon(src: torch.Tensor, qp_scaled: int,
     if H % TILE or W % TILE:
         raise ValueError("pseudo_recon: the plane must be a multiple of 16 "
                          "in both dimensions")
+    kernels.check_batch("pseudo_recon", H * W)
     if src.device.type == "cpu":
         return pseudo_recon_plain(src, qp_scaled, bitdepth)
     dev = kernels.check_cuda("pseudo_recon", src)

@@ -245,9 +245,8 @@ def _launch_levels(name: str, x: torch.Tensor, *consts: int) -> torch.Tensor:
     x = x.contiguous()
     dev = kernels.check_cuda(name, x)
     out = torch.empty(x.shape, dtype=torch.int32, device=dev)
-    if x.numel():
-        kernels.launch(name, dev, x.data_ptr(), x.numel(), x.element_size(),
-                       *consts, out.data_ptr())
+    kernels.launch(name, dev, x.data_ptr(), x.numel(), x.element_size(),
+                   *consts, out.data_ptr())
     return out
 
 
@@ -255,6 +254,7 @@ def quant_batch(coef: torch.Tensor, qp_scaled: int, bitdepth: int = 8,
                 is_intra_slice: bool = True) -> torch.Tensor:
     """K14 quantiser: quant_batch_plain on the CPU, the CUDA kernel on the
     card (which reads int16 and int32 coefficients in place)."""
+    kernels.check_batch("quant_batch", coef.numel())
     if coef.device.type == "cpu":
         return quant_batch_plain(coef, qp_scaled, bitdepth, is_intra_slice)
     coef = _levels_input("quant_batch", coef)
@@ -266,6 +266,7 @@ def dequant_batch(q: torch.Tensor, qp_scaled: int,
                   bitdepth: int = 8) -> torch.Tensor:
     """K14 dequantiser: dequant_batch_plain on the CPU, the CUDA kernel on
     the card (which reads int16 and int32 levels in place)."""
+    kernels.check_batch("dequant_batch", q.numel())
     if q.device.type == "cpu":
         return dequant_batch_plain(q, qp_scaled, bitdepth)
     q = _levels_input("dequant_batch", q)

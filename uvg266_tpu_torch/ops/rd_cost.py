@@ -137,6 +137,7 @@ def rd_cost_plain(preds, src, satds, qp: int, lam: float, wts, mode_bits,
 def rd_cost(preds, src, satds, qp: int, lam: float, wts, mode_bits,
             tables: dict, bitdepth: int):
     """K4: rd_cost_plain on the CPU, the CUDA kernel on the card."""
+    kernels.check_batch("rd_cost", preds.shape[0])
     if preds.device.type == "cpu":
         return rd_cost_plain(preds, src, satds, qp, lam, wts, mode_bits,
                              tables, bitdepth)
@@ -192,6 +193,7 @@ def rd_cost_pred_plain(pred, src, qp: int, lam: float, wts, extra_bits,
 def rd_cost_pred(pred, src, qp: int, lam: float, wts, extra_bits,
                  tables: dict, bitdepth: int, is_intra_slice: bool = False):
     """K6: rd_cost_pred_plain on the CPU, the CUDA kernel on the card."""
+    kernels.check_batch("rd_cost_pred", pred.shape[0])
     if pred.device.type == "cpu":
         return rd_cost_pred_plain(pred, src, qp, lam, wts, extra_bits,
                                   tables, bitdepth, is_intra_slice)
@@ -446,6 +448,7 @@ def mts_search_sep(pred, src, qp: int, lam: float, wts, mts: dict,
 def mts_search(pred, src, qp: int, lam: float, wts, mts: dict,
                bitdepth: int):
     """K11: mts_search_plain on the CPU, the CUDA kernel on the card."""
+    kernels.check_batch("mts_search", pred.shape[0])
     if pred.device.type == "cpu":
         return mts_search_plain(pred, src, qp, lam, wts, mts, bitdepth)
     dev = kernels.check_cuda("mts_search", pred, src, wts, mts["mts_w"],
@@ -648,6 +651,7 @@ def _rough_stage(stage: int, s1, lam: float, mode_bits, m1, s2=None,
 def rough_select(s1, lam: float, mode_bits, m1):
     """K12c stage 1: rough_select_plain on the CPU, the kernel on the
     card."""
+    kernels.check_batch("rough_select", s1.shape[0])
     if s1.device.type == "cpu":
         return rough_select_plain(s1, lam, mode_bits, m1)
     return _rough_stage(1, s1, lam, mode_bits, m1)
@@ -655,6 +659,7 @@ def rough_select(s1, lam: float, mode_bits, m1):
 
 def rough_pick(s1, s2, refine, lam: float, mode_bits, m1, p1, p2):
     """K12c stage 2: rough_pick_plain on the CPU, the kernel on the card."""
+    kernels.check_batch("rough_pick", s1.shape[0])
     if s1.device.type == "cpu":
         return rough_pick_plain(s1, s2, refine, lam, mode_bits, m1, p1, p2)
     return _rough_stage(2, s1, lam, mode_bits, m1, s2, refine, p1, p2)

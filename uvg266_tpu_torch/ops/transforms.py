@@ -216,14 +216,13 @@ def _launch_transform(name: str, x: torch.Tensor, type_hor: int,
         raise ValueError(f"{name}: the blocks must be 16-byte aligned (the "
                          "kernel reads them four samples at a time)")
     out = torch.empty(x.shape, dtype=torch.int16, device=dev)
-    B = x.numel() // (h * w)
-    if B:
-        # the forward reads M's rows, the inverse M^T's (M's columns)
-        t = name == "inv_transform"
-        kernels.launch(name, dev, x.data_ptr(), B, w, h, type_hor, type_ver,
-                       device_matrix32(type_hor, w, str(dev), t).data_ptr(),
-                       device_matrix32(type_ver, h, str(dev), t).data_ptr(),
-                       *params, out.data_ptr())
+    # the forward reads M's rows, the inverse M^T's (M's columns)
+    t = name == "inv_transform"
+    kernels.launch(name, dev, x.data_ptr(), x.numel() // (h * w), w, h,
+                   type_hor, type_ver,
+                   device_matrix32(type_hor, w, str(dev), t).data_ptr(),
+                   device_matrix32(type_ver, h, str(dev), t).data_ptr(),
+                   *params, out.data_ptr())
     return out
 
 
@@ -231,6 +230,7 @@ def fwd_batch(x: torch.Tensor, type_hor: int = DCT2, type_ver: int = DCT2,
               bitdepth: int = 8) -> torch.Tensor:
     """K13 forward: fwd_batch_plain on the CPU, the CUDA kernel on the
     card."""
+    kernels.check_batch("fwd_batch", x.numel())
     if x.device.type == "cpu":
         return fwd_batch_plain(x, type_hor, type_ver, bitdepth)
     x = _int32_blocks("fwd_batch", x)
@@ -243,6 +243,7 @@ def inv_batch(c: torch.Tensor, type_hor: int = DCT2, type_ver: int = DCT2,
               bitdepth: int = 8) -> torch.Tensor:
     """K13 inverse: inv_batch_plain on the CPU, the CUDA kernel on the
     card."""
+    kernels.check_batch("inv_batch", c.numel())
     if c.device.type == "cpu":
         return inv_batch_plain(c, type_hor, type_ver, bitdepth)
     c = _int32_blocks("inv_batch", c)

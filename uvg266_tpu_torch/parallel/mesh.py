@@ -112,22 +112,16 @@ class MeshEncoder:
 
         ps = PartitionSearch(self.ctrl, self.cfg, qp=self.cfg.qp)
         rough = bool(getattr(self.cfg, "intra_rough", False))
-        entries = []
-        for (w, h) in ps._shapes():
-            positions, gw, gh = ps._positions(max(w, h), w, h)
-            entries.append((("shape", w, h, gw, gh), w, h, positions))
-        for s in ps.tt_parents:
-            for vert in (False, True):
-                w, h = ((s >> 1), s) if vert else (s, (s >> 1))
-                positions = ps._tt_mid_positions(s, vert)
-                if positions:
-                    entries.append((("tt", s, vert), w, h, positions))
+        # a class with no position (64x64 below 64 samples) is not
+        # searched; its costs stay INF
         classes = [{
             "key": key, "w": w, "h": h, "positions": positions,
+            "shape": shape,
             "xs": np.array([p[0] for p in positions], dtype=np.int32),
             "ys": np.array([p[1] for p in positions], dtype=np.int32),
-            "grid": None if rough else grid_of_positions(positions, w, h)}
-            for key, w, h, positions in entries if positions]
+            "grid": None if rough or not positions
+            else grid_of_positions(positions, w, h)}
+            for key, w, h, positions, shape in ps._classes()]
         self._classes = (ps, classes)
         return self._classes
 
@@ -139,12 +133,13 @@ class MeshEncoder:
         to the host, then the reference's per-frame reassembly.
         Returns (ctus_per_frame, frame_rd_stats)."""
         from ..control.encoder import _fetch_async, _frames_search
-        from ..control.partition import INF, PartitionSearch, qp_to_lambda
+        from ..control.partition import PartitionSearch, qp_to_lambda
         from ..ops.tables import frame_tables
 
         G = self.n_gop
         assert len(srcs_y) == G
-        ps0, classes = self._search_classes()
+        _ps, classes = self._search_classes()
+        searched = [cl for cl in classes if cl["positions"]]
         src = torch.from_numpy(np.stack(
             [s.astype(np.int32) for s in srcs_y])).to(self.device)
         tabs = frame_tables(qp, str(self.device))
@@ -152,7 +147,7 @@ class MeshEncoder:
                    float(np.float32(qp_to_lambda(qp))), tabs["wts"])]
         flat = _fetch_async(_frames_search(
             tuple((cl["w"], cl["h"], cl["grid"], cl["xs"], cl["ys"])
-                  for cl in classes), self.ctrl.bitdepth, src, groups,
+                  for cl in searched), self.ctrl.bitdepth, src, groups,
             tabs["mode_bits"], rough=bool(getattr(self.cfg, "intra_rough",
                                                   False)),
             mip=bool(self.cfg.mip)))()          # one copy a batch
@@ -192,20 +187,9 @@ class MeshEncoder:
                              "tr_idx": 0}
                     descs[k] = d
                     costs[k] = c
-                key = cl["key"]
-                if key[0] == "shape":
-                    _kind, w, h, gw, gh = key
-                    c = np.full((gh, gw), INF)
-                    m = {}
-                    for k, (x, y) in enumerate(cl["positions"]):
-                        c[y // h, x // w] = costs[k]
-                        m[(x, y)] = descs[k]
-                    cost_f[g][(w, h)] = c
-                    mode_f[g][(w, h)] = m
-                else:
-                    _kind, s, vert = key
-                    ps0._store_tt(cost_f[g], mode_f[g], s, vert,
-                                  cl["positions"], descs, costs)
+                PartitionSearch._store(cost_f[g], mode_f[g], cl["key"],
+                                       cl["w"], cl["h"], cl["positions"],
+                                       cl["shape"], descs, costs)
 
         ctus = [PartitionSearch(self.ctrl, self.cfg, qp=qp)._decide(
             cost_f[g], mode_f[g]) for g in range(G)]
