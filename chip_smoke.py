@@ -70,7 +70,9 @@ Phases, one line each (or a few), any failure exits non-zero:
      equal, tolerance 0. K9a, both K9b forms, the K12c chain and its two
      stages are also timed on a CUDA graph of 20 calls, beside the earlier
      designs' times;
-  4d. the batched transforms and quantisers, whose only callers are their
+  4d. (run after phase 10: transform.cu and quant.cu build in a process of
+     their own from phase 2 on, and no other phase launches them) the
+     batched transforms and quantisers, whose only callers are their
      users (no encode path reaches them, as in the reference): K13
      fwd_transform / inv_transform and K14 quant_levels / dequant_levels
      at the four all-intra classes (DCT2, 8 and 10 bits), every MTS pair up
@@ -186,7 +188,30 @@ Phases, one line each (or a few), any failure exits non-zero:
   11c. the Config defaults (LD GOP 4, rdoq on) at 72x40: the 64x64 class
      has no position and is skipped; every wrapper refuses an empty batch,
      so the encode shows that none was asked for one;
- 12. a JSON line with each kernel's numbers, then the last line
+ 12. the reference's 1920x1080 configurations (BDRATE_1080p.json: the port's
+     tools/bdrate.py synth_clip, seed 7) and a 3840x2160 batch, each frame
+     held to tests/vectors/torch_ctc_digests.json (tools/ctc_digests.py:
+     the port's CPU path and the JAX package's, per frame): all-intra QP22
+     and QP37, low delay QP22 and RA GOP 8 QP27 (the CLI's -p 1, --gop lp
+     and --gop ra8 with --preset ultrafast) through Encoder.feed/flush,
+     low delay QP37 through the CLI in a subprocess (its output file and
+     --rec-out), the Config default (make_config(): LD GOP 4, rdoq on)
+     and phase 7c's 10-bit LD at QP27, and bench.py's all-intra Config at
+     3840x2160 and 10 bits as one dispatch_frames_search batch of 3 frames,
+     then encode_frame(prefetch=...). First K1-K4 at that batch's 64x64
+     and 8x8 classes against their plain versions (K2's output 77.6% of
+     2^31 elements), tolerance 0; then each encode with its wall fps,
+     device busy share (one encode under the profiler gives both), peak
+     device memory (max_memory_allocated) and launches held to the path's
+     counts; the batch's largest element offset per wrapper beside 2^31;
+     K1-K6, K8, K9a and K9b replayed from a CUDA graph on the calls of one
+     encode each (device ms, launches and bound a 1080p frame); and the
+     CPU child's all-intra QP22 and first two low-delay QP22 frames
+     against the fixture (a host difference between machines told apart
+     from a kernel fault). Phases 6b-7c time one encode under the
+     profiler, which gives both the wall and the busy share;
+ 13. a JSON line with each kernel's numbers (at_1920x1080: phase 12's),
+     then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports nothing of JAX or the JAX package.
@@ -218,7 +243,9 @@ SLOW_PRESETS = ("slower", "veryslow", "placebo")
 PRESET_FRAMES, SLOW_PRESET_FRAMES = 3, 2
 TOOL_W, TOOL_H, TOOL_CLIP = 136, 72, 3     # phase 11b
 SMALL_W, SMALL_H = 72, 40          # phase 11c: no 64x64 block inside
-CHILD_THREADS = 4                  # the CPU half's intra-op threads
+# the CPU half (phases 8, 11 and 12): child processes, intra-op threads
+# each, on the cores the build and the card's phases leave idle
+CHILD_PROCS, CHILD_THREADS = 3, 2
 AI = {"gop_len": 0, "intra_period": 1}
 # phase 11b: the host tools no preset turns on
 # (tests/test_torch_e2e_host_tools.py), the other options at the Config
@@ -242,6 +269,38 @@ HOST_TOOLS = {
     "RA GOP 8": {"gop_len": 8, "gop_lowdelay": False},
     "4:0:0": {"input_format": 0},
 }
+# phase 12: the reference's 1920x1080 record (BDRATE_1080p.json: the port's
+# tools/bdrate.py synth_clip, seed 7, and its CONFIGS, as the port's CLI
+# builds them), the Config default, phase 7c's 10-bit LD, and bench.py's
+# all-intra Config at 3840x2160 and 10 bits as one batch of 3 frames
+# (dispatch_frames_search, then encode_frame(prefetch=...)); each frame's
+# digests are in CTC_FIXTURE (tools/ctc_digests.py computes them with the
+# port's CPU path and the JAX package)
+CTC_FIXTURE = os.path.join("tests", "vectors", "torch_ctc_digests.json")
+CTC = {   # label: (configuration, qp, frames, entry point, width, height)
+    "1080p allintra q22": ("allintra", 22, 3, "encoder", 1920, 1080),
+    "1080p allintra q37": ("allintra", 37, 3, "encoder", 1920, 1080),
+    "1080p lowdelay q22": ("lowdelay", 22, 3, "encoder", 1920, 1080),
+    "1080p lowdelay q37": ("lowdelay", 37, 3, "cli", 1920, 1080),
+    "1080p ra8 q27": ("ra8", 27, 9, "encoder", 1920, 1080),
+    "1080p default q27": ("default", 27, 2, "encoder", 1920, 1080),
+    "1080p ld10 q27": ("ld10", 27, 2, "encoder", 1920, 1080),
+    "2160p ai10 q22": ("ai10", 22, 3, "batch", 3840, 2160),
+}
+# phase 12's CLI row: python -m uvg266_tpu_torch.tools.encode with its
+# arguments, run as -m runs it, then the launches its kernels made
+CLI_WITH_LAUNCHES = (
+    "import json, runpy\n"
+    "from uvg266_tpu_torch import kernels\n"
+    "try:\n"
+    "    runpy.run_module('uvg266_tpu_torch.tools.encode', "
+    "run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    print('LAUNCHES ' + json.dumps(kernels.LAUNCHES), flush=True)\n")
+# the CPU child's phase-12 encodes (label, frames): the card's host
+# differs from the fixture's, so these tell a host difference from a
+# kernel fault
+CTC_CPU = (("1080p allintra q22", 3), ("1080p lowdelay q22", 2))
 R = 16                             # full-pel search range of the dense path
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 OPS_PER_S = 67e12             # H100 SXM float32 rate outside the tensor cores,
@@ -363,16 +422,24 @@ MAIN_PATH = {**dict.fromkeys(INTRA_KERNELS, "all-intra"),
              **dict.fromkeys(TR_KERNELS, "transform round trip")}
 
 
-# the child processes started here (the CPU half of phase 11), stopped on
-# failure
+# the child processes started here (the CPU half's pool, the late build),
+# stopped on failure
 _CHILDREN: list = []
+# the sources only phase 4d needs (K13, K14): built in a process of their
+# own while phases 3-4c run (transform.cu alone takes minutes of nvcc)
+LATE_SOURCES = ("transform", "quant")
+LATE_BUILD = ("from uvg266_tpu_torch import kernels; "
+              f"kernels.build({LATE_SOURCES!r})")
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
-    for pool in _CHILDREN:
-        pool.terminate()
-        pool.join()
+    for child in _CHILDREN:
+        child.terminate()
+        if hasattr(child, "join"):
+            child.join()
+        else:
+            child.wait()
     sys.exit(1)
 
 
@@ -458,9 +525,12 @@ def search_classes(ps):
 
 
 def job_config(Config, make_config, opts, w, h):
-    """A phase-11 configuration: a preset's name or Config options."""
+    """A CPU-half configuration: a preset's name, one of the *_config
+    functions above, or Config options."""
     if isinstance(opts, str):
         return make_config(opts, width=w, height=h)
+    if callable(opts):
+        return opts(Config, w, h)
     return Config(width=w, height=h, **opts)
 
 
@@ -471,6 +541,20 @@ def job_clip(cfg, n):
     if cfg.input_format == 0:
         frames = [(f[0], None, None) for f in frames]
     return frames
+
+
+def phase8_jobs():
+    """(label, configuration, width, height, frames) of every CPU encode
+    of phase 8: each path's first frames."""
+    return [("all-intra", bench_config, W, H, 1),
+            ("low-delay", ld_config, W, H, 3),
+            ("rdoq LD", rdoq_ld_config, W, H, 2),
+            ("dense RA", dense_config, W, H, 3),
+            ("MIP", mip_config, W, H, 1), ("MTS", mts_config, W, H, 1),
+            ("10-bit LD", ld10_config, W, H, 2),
+            ("slow RA", slow_ra_config, W, H, 3),
+            ("rough", rough_config, W, H, 1),
+            ("LD 136x72", ld_config, 136, 72, 3)]
 
 
 def phase11_jobs(presets):
@@ -512,6 +596,112 @@ def cpu_encodes(jobs):
         got = encode(Encoder(cfg, device="cpu"), FramePlanes,
                      job_clip(cfg, n))
         out[label] = [(o[0], recon_digest(o[1])) for o in got]
+    return out, time.perf_counter() - t0
+
+
+def ctc_config(label, w=None, h=None):
+    """The port's Config of phase-12 encode ``label`` (at w x h if given):
+    the CLI's for tools/bdrate.py's configurations, make_config()'s
+    default, phase 7c's 10-bit LD, bench.py's all-intra at 10 bits."""
+    from uvg266_tpu_torch.cfg import Config, make_config
+    from uvg266_tpu_torch.tools.bdrate import CONFIGS
+    from uvg266_tpu_torch.tools.encode import cli_config
+    name, qp, _n, _entry, w0, h0 = CTC[label]
+    w, h = w or w0, h or h0
+    if name in CONFIGS:
+        return cli_config(CONFIGS[name][1] + ["-q", str(qp)], w, h)
+    if name == "default":
+        return make_config(width=w, height=h, qp=qp)
+    if name == "ld10":
+        return dataclasses.replace(ld10_config(Config, w, h), qp=qp)
+    return dataclasses.replace(bench_config(Config, w, h), qp=qp,
+                               input_bitdepth=10)
+
+
+def ctc_clip(w, h, n, bitdepth=8):
+    """tools/bdrate.py's synth_clip (seed 7) as int32 planes at
+    ``bitdepth`` (shifted left by bitdepth - 8)."""
+    from uvg266_tpu_torch.tools.bdrate import synth_clip as bd_clip
+    return [tuple(p.astype(np.int32) << (bitdepth - 8) for p in f)
+            for f in bd_clip(w, h, n, seed=7)]
+
+
+def port_api(device):
+    """The port's classes for ctc_encode, on ``device``."""
+    from uvg266_tpu_torch.control.encoder import (Encoder, FramePlanes,
+                                                  SliceEncoder)
+    from uvg266_tpu_torch.control.params import EncoderControl, FrameState
+    return {"Encoder": lambda cfg: Encoder(cfg, device=device),
+            "SliceEncoder": lambda cfg, ctrl: SliceEncoder(cfg, ctrl,
+                                                           device=device),
+            "FramePlanes": FramePlanes, "EncoderControl": EncoderControl,
+            "FrameState": FrameState}
+
+
+def ctc_encode(api, cfg, frames, entry, batch=None):
+    """Encode ``frames`` with ``cfg`` through a package's entry point ->
+    [(au, recon, slice type)] per frame. entry "encoder" (and "cli", whose
+    frames the fixture takes from the Encoder): Encoder.feed/flush;
+    "batch": SliceEncoder.dispatch_frames_search over ``batch`` frames at
+    a time (default all), then encode_frame(prefetch=...), as bench.py:122-
+    219 drives the reference."""
+    if entry != "batch":
+        return [(o[0], o[1], int(o[2].slicetype)) for o in
+                encode(api["Encoder"](cfg), api["FramePlanes"], frames)]
+    planes = [api["FramePlanes"](*f) for f in frames]
+    FrameState = api["FrameState"]
+    se = api["SliceEncoder"](cfg, api["EncoderControl"](cfg))
+    batch = batch or len(planes)
+    out = []
+    for b0 in range(0, len(planes), batch):
+        idx = range(b0, min(b0 + batch, len(planes)))
+        pre = se.dispatch_frames_search(
+            [FrameState(num=i, qp=cfg.qp) for i in idx],
+            [planes[i] for i in idx])
+        if pre is None:
+            raise RuntimeError("dispatch_frames_search declined the batch")
+        for j, i in enumerate(idx):
+            au, rec = se.encode_frame(FrameState(num=i, qp=cfg.qp), planes[i],
+                                      prefetch=pre[j])
+            out.append((au, rec, 2))         # all-intra: every frame I
+    return out
+
+
+def rec_out_digest(rec, w, h, bitdepth) -> str:
+    """SHA-256 of the bytes the CLI's --rec-out writes for a frame (the
+    planes cropped to w x h, uint8 or little-endian uint16)."""
+    dt = np.uint8 if bitdepth == 8 else np.dtype("<u2")
+    d = hashlib.sha256()
+    for p, (ph, pw) in ((rec.y, (h, w)), (rec.u, (h // 2, w // 2)),
+                        (rec.v, (h // 2, w // 2))):
+        if p is not None:
+            d.update(p[:ph, :pw].astype(dt).tobytes())
+    return d.hexdigest()
+
+
+def frame_digests(outs, cfg):
+    """Each frame's digests as the fixture holds them."""
+    return [{"type": SLICE[t], "au": hashlib.sha256(au).hexdigest(),
+             "au_bytes": len(au), "recon": recon_digest(rec),
+             "rec_out": rec_out_digest(rec, cfg.width, cfg.height,
+                                       cfg.input_bitdepth)}
+            for au, rec, t in outs]
+
+
+def ctc_cpu_encodes(jobs):
+    """The port's CPU path for the phase-12 encodes ``jobs`` ((label,
+    frames), the clip's first frames): {label: frame digests} and the
+    seconds it took. Runs in the child process after cpu_encodes."""
+    import torch
+    torch.set_num_threads(CHILD_THREADS)
+    t0 = time.perf_counter()
+    out = {}
+    for label, n in jobs:
+        cfg = ctc_config(label)
+        out[label] = frame_digests(ctc_encode(
+            port_api("cpu"), cfg, ctc_clip(cfg.width, cfg.height, n,
+                                           cfg.input_bitdepth),
+            CTC[label][3]), cfg)
     return out, time.perf_counter() - t0
 
 
@@ -776,9 +966,10 @@ def work(name, B, w, h, H_, W_, M=67, **kw):
         # box sums (a square and two sliding add/subtract pairs per window
         # sample); b2; per offset three operations to combine, the penalty
         # add and a compare
-        nn = (2 * R + 1) ** 2
+        r = kw.get("r", R)
+        nn = (2 * r + 1) ** 2
         return ((H_ * W_ + B * hw + 2 * B + nn + 3 * B) * 4,
-                B * (nn * hw * 2 + (h + 2 * R) * (w + 2 * R) * 5 + hw * 2
+                B * (nn * hw * 2 + (h + 2 * r) * (w + 2 * r) * 5 + hw * 2
                      + nn * 5))
     if name == "frac_search":
         # the reference plane, blocks, positions, MVs and penalty in; best,
@@ -1040,6 +1231,10 @@ def main() -> int:
     dev = torch.device("cuda")
     card_kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
+    stamps = [("1", t_start)]
+
+    def stamp(phase):
+        stamps.append((phase, time.perf_counter()))
 
     # --- 1. the card --------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1053,25 +1248,66 @@ def main() -> int:
           f"{torch.version.cuda}, count {torch.cuda.device_count()}",
           flush=True)
 
-    # the CPU half of phase 11 in a child process, on the cores the build
-    # and the card's phases leave idle
-    pool = multiprocessing.get_context("spawn").Pool(1)
+    # the CPU half of phases 8, 11 and 12 in child processes, one task an
+    # encode, in the order the phases need them
+    pool = multiprocessing.get_context("spawn").Pool(CHILD_PROCS)
     _CHILDREN.append(pool)
-    cpu_half = pool.apply_async(cpu_encodes, (phase11_jobs(PRESETS),))
     t_child = time.perf_counter()
+    cpu8, cpu11, ctc_half = (
+        [pool.apply_async(fn, ([job],)) for job in jobs]
+        for fn, jobs in ((cpu_encodes, phase8_jobs()),
+                         (cpu_encodes, phase11_jobs(PRESETS)),
+                         (ctc_cpu_encodes, CTC_CPU)))
+
+    def cpu_half(tasks, phase):
+        """The child tasks' merged results -> ({label: frames}, the seconds
+        they took together), within 600 s of this call."""
+        t0 = time.perf_counter()
+        out, secs = {}, 0.0
+        for task in tasks:
+            try:
+                got, s_ = task.get(timeout=max(1.0, 600 - (
+                    time.perf_counter() - t0)))
+            except multiprocessing.TimeoutError:
+                fail(f"phase {phase}: the CPU half did not finish within "
+                     "600 s")
+            except Exception as e:      # raised in a child, re-raised here
+                fail(f"phase {phase}: the CPU half failed: {e!r}")
+            out.update(got)
+            secs += s_
+        print(f"phase {phase} CPU half: {len(out)} encodes in "
+              f"{CHILD_PROCS} child processes ({CHILD_THREADS} threads "
+              f"each), {secs:.3f} s of their time, started "
+              f"{t0 - t_child:.3f} s before phase {phase} asked for them "
+              f"({t0 - t_start:.3f} s after phase 1), waited "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        return out
 
     # --- 2. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    secs = kernels.build()
-    print(f"phase 2 build: {time.perf_counter() - t0:.3f} s wall, per kernel "
-          + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()), flush=True)
-    for name in dict.fromkeys(kernels.source_of(n)
-                              for n in kernels.SIGNATURES):
-        usage = [ln.strip() for ln in kernels.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"  ptxas {name}: {' | '.join(usage)}", flush=True)
+    stamp("2")
+    t_build = time.perf_counter()
+    late = subprocess.Popen([sys.executable, "-c", LATE_BUILD],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    _CHILDREN.append(late)
+    secs = kernels.build([n for n in kernels.SIGNATURES
+                          if kernels.source_of(n) not in LATE_SOURCES])
+    print(f"phase 2 build: {time.perf_counter() - t_build:.3f} s wall, "
+          "per kernel "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+          + f"; {', '.join(LATE_SOURCES)} in a process of their own until "
+          "phase 4d", flush=True)
+
+    def ptxas(names):
+        for name in names:
+            usage = [ln.strip() for ln in kernels.build_log(name).splitlines()
+                     if "registers" in ln or "spill" in ln]
+            print(f"  ptxas {name}: {' | '.join(usage)}", flush=True)
+    ptxas(secs)
 
     # --- 3. each all-intra kernel against its plain version -----------------
+    stamp("3")
     cfg = bench_config(Config)
     ctrl = EncoderControl(cfg)
     frames = synth_clip()
@@ -1293,6 +1529,7 @@ def main() -> int:
           flush=True)
 
     # --- 4. each inter kernel against its plain version ---------------------
+    stamp("4")
     n0 = checks
     # K5: the plane the P/B intra screen reads its references from
     for bd in (8, 10):
@@ -1478,6 +1715,7 @@ def main() -> int:
           flush=True)
 
     # --- 4b. the kernels of the all-intra tool paths ------------------------
+    stamp("4b")
     n0 = checks
     for (_key, w, h, positions, g) in entries:
         B = len(positions)
@@ -1645,6 +1883,7 @@ def main() -> int:
           flush=True)
 
     # --- 4c. the per-class inter search and the rough search ----------------
+    stamp("4c")
     n0 = checks
     l10cfg = ld10_config(Config)
     ps10 = PartitionSearch(EncoderControl(l10cfg), l10cfg, qp=LD_QP,
@@ -1878,216 +2117,6 @@ def main() -> int:
                      f"times, expected {want_counts.get(name, 0)}")
         counts[path] = launches
 
-    # --- 4d. the batched transforms and quantisers --------------------------
-    n0 = checks
-
-    def tiles(plane, w, h):
-        """The w x h blocks of a plane, cropped to whole blocks."""
-        hh, ww = H // h * h, W // w * w
-        return plane[:hh, :ww].reshape(hh // h, h, ww // w, w) \
-            .transpose(1, 2).reshape(-1, h, w).contiguous()
-
-    def tr_inputs(w, h, bd):
-        """The frame's residuals (the clip scaled to the bit depth, minus
-        1 << (bd - 1)), random residuals, int16-range inputs, and the int32
-        extremes (random int32, a checkerboard of INT32_MAX and INT32_MIN:
-        the butterflies' sums wrap there)."""
-        res = tiles(frame_src, w, h) * (1 << (bd - 8)) - (1 << (bd - 1))
-        mx = (1 << bd) - 1
-        return {"frame": res,
-                "rand": torch.randint(-mx, mx + 1, res.shape, generator=gen,
-                                      device=dev, dtype=torch.int32),
-                "int16": torch.randint(-32767, 32768, res.shape,
-                                       generator=gen, device=dev,
-                                       dtype=torch.int32),
-                "int32": int32_extremes(res.shape)}
-
-    def int32_extremes(shape):
-        """Random int32 blocks, and every fourth a checkerboard of
-        INT32_MAX and INT32_MIN."""
-        x = torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
-                          device=dev, dtype=torch.int64)
-        h, w = shape[-2:]
-        board = (torch.arange(h, device=dev)[:, None]
-                 + torch.arange(w, device=dev)[None]) % 2 == 0
-        x[::4] = torch.where(board, 2 ** 31 - 1, -2 ** 31)
-        return x.to(torch.int32)
-
-    def at_offset(t, o):
-        """A copy of t that starts o elements past a 16-byte boundary."""
-        flat = torch.empty(t.numel() + o, dtype=t.dtype, device=dev)
-        view = flat[o:].view(t.shape)
-        view.copy_(t)
-        return view
-
-    edges = torch.tensor([0, 1, -1, 200000, -200000, 2 ** 31 - 1, -2 ** 31,
-                          32767, -32768, 26215, -26215, 29127],
-                         dtype=torch.int32, device=dev)
-    dct2_cls = [(w, h) for (w, h, _g) in classes]
-    tr_shapes = [(w, h, DCT2, DCT2) for (w, h) in dct2_cls + [(32, 8),
-                                                              (8, 32)]]
-    tr_shapes += [(w, h, th, tv) for (w, h) in dct2_cls + [(32, 8), (8, 32)]
-                  if max(w, h) <= 32
-                  for th in (DST7, DCT8) for tv in (DST7, DCT8)]
-    for (w, h, th, tv) in tr_shapes:
-        for bd in (8, 10):
-            for tag, x in tr_inputs(w, h, bd).items():
-                what = f"{w}x{h} {th}/{tv} {bd}-bit {tag}"
-                c = tr.fwd_batch(x, th, tv, bd)
-                same("fwd_transform", what, c,
-                     tr.fwd_batch_plain(x, th, tv, bd))
-                cc = torch.cat([c.to(torch.int32), x])
-                same("inv_transform", what, tr.inv_batch(cc, th, tv, bd),
-                     tr.inv_batch_plain(cc, th, tv, bd))
-                if th != DCT2 or tv != DCT2:
-                    continue
-                # the quantisers on the coefficients, int16-range values
-                # and the int32 edges; on K13's int16 coefficients as they
-                # are, and both at an element offset of 1, 2 and 4
-                lv = cc.clone()
-                lv[0].view(-1)[:min(edges.numel(), w * h)] = \
-                    edges[:w * h]
-                levels = {"int32": lv, "int16": c}
-                if tag == "frame":
-                    levels.update({f"{k} +{o}": at_offset(v, o)
-                                   for k, v in (("int32", lv), ("int16", c))
-                                   for o in (1, 2, 4)})
-                for qp in TR_QPS + (51 if bd == 8 else 63,):
-                    for lk, lx in levels.items():
-                        for intra in (True, False):
-                            same("quant_levels",
-                                 f"{what} {lk} qp{qp} {intra}",
-                                 qu.quant_batch(lx, qp, bd, intra),
-                                 qu.quant_batch_plain(lx, qp, bd, intra))
-                        same("dequant_levels", f"{what} {lk} qp{qp}",
-                             qu.dequant_batch(lx, qp, bd),
-                             qu.dequant_batch_plain(lx, qp, bd))
-    # K13 at every lattice shape (its templates) and at the generic shapes
-    # (a dimension of 1 or 2, 10 bits), one block more than a thread block
-    # holds, on residuals and the int32 extremes; K14 on element counts that
-    # are not multiples of 8 (2x1 and 1x1 blocks at 10 bits, int16 and
-    # int32, at an offset too)
-    sizes = (4, 8, 16, 32, 64)
-    for (w, h) in ([(w, h) for w in sizes for h in sizes]
-                   + [(1, 8), (8, 1), (2, 4), (2, 64), (64, 2), (1, 1)]):
-        bds = (10,) if min(w, h) < 4 else (8, 10)
-        nblk = max(1, 2048 // (w * h)) + 1
-        for bd in bds:
-            mx = (1 << bd) - 1
-            x = torch.cat([torch.randint(-mx, mx + 1, (nblk, h, w),
-                                         generator=gen, device=dev,
-                                         dtype=torch.int32),
-                           int32_extremes((4, h, w))])
-            what = f"{w}x{h} {bd}-bit lattice"
-            c = tr.fwd_batch(x, DCT2, DCT2, bd)
-            same("fwd_transform", what, c, tr.fwd_batch_plain(x, DCT2,
-                                                               DCT2, bd))
-            cc = torch.cat([c.to(torch.int32), x])
-            same("inv_transform", what, tr.inv_batch(cc, DCT2, DCT2, bd),
-                 tr.inv_batch_plain(cc, DCT2, DCT2, bd))
-    odd = torch.cat([edges, torch.randint(-40000, 40000, (2 * 37,),
-                                          generator=gen, device=dev,
-                                          dtype=torch.int32)])
-    for shape in ((43, 2, 1), (86, 1, 1)):
-        for lk, lx in (("int32", odd.view(shape)),
-                       ("int16", odd.to(torch.int16).view(shape)),
-                       ("int32 +1", at_offset(odd.view(shape), 1)),
-                       ("int16 +1", at_offset(odd.to(torch.int16).view(shape),
-                                              1))):
-            for qp in TR_QPS + (63,):
-                what = f"{shape[2]}x{shape[1]} 10-bit {lk} qp{qp}"
-                same("quant_levels", what, qu.quant_batch(lx, qp, 10),
-                     qu.quant_batch_plain(lx, qp, 10))
-                same("dequant_levels", what, qu.dequant_batch(lx, qp, 10),
-                     qu.dequant_batch_plain(lx, qp, 10))
-    # the wrap edges of the reference: 8x4 at 10 bits, qp_scaled 63, levels
-    # of magnitude 26215 and more (level * (80 << 10) passes 2^31), and the
-    # quant of 200000 at 4x4 10 bits, qp_scaled 0
-    big = torch.randint(26215, 32768, (1024, 4, 8), generator=gen,
-                        device=dev, dtype=torch.int32)
-    big[1::2] = -big[1::2]
-    big[0, 0, :2] = torch.tensor([29127, -32768], dtype=torch.int32)
-    dq = qu.dequant_batch(big, 63, 10)
-    same("dequant_levels", "8x4 10-bit qp63 wrap", dq,
-         qu.dequant_batch_plain(big, 63, 10))
-    if dq[0, 0, :2].tolist() != [-32768, 32767]:
-        fail(f"dequant_levels: 29127 and -32768 at 8x4 10-bit qp63 gave "
-             f"{dq[0, 0, :2].tolist()}, the reference's wrap gives "
-             "[-32768, 32767]")
-    q200 = qu.quant_batch(torch.full((64, 4, 4), 200000, dtype=torch.int32,
-                                     device=dev), 0, 10)
-    if not bool((q200 == 7231).all()):
-        fail("quant_levels: 200000 at 4x4 10-bit qp0 is not the reference's "
-             "7231")
-    # times at the frame's residuals (8 bits, QP22), once per class; the
-    # float64 matmul chain as K13's library time, equal on these inputs
-    for (w, h) in dct2_cls:
-        x = tr_inputs(w, h, 8)["frame"]
-        s1, s2 = tr.fwd_shifts(w, h, 8)
-        i1, i2 = tr.inv_shifts(8)
-        keep_w, keep_h = tr.zero_out(w, DCT2, DCT2, h)
-        mw = device_matrix(DCT2, w, str(dev)).double()
-        mh = device_matrix(DCT2, h, str(dev)).double()
-        c = tr.fwd_batch(x, DCT2, DCT2, 8)
-        lv = qu.quant_batch(c, QP, 8)
-        dq = qu.dequant_batch(lv, QP, 8)
-        same("fwd_transform", f"{w}x{h} float64 chain", c,
-             fwd_f64(torch, x, mw, mh, s1, s2, keep_w, keep_h))
-        same("inv_transform", f"{w}x{h} float64 chain",
-             tr.inv_batch(dq, DCT2, DCT2, 8),
-             inv_f64(torch, dq, mw, mh, i1, i2))
-        shape = dict(B=x.shape[0], w=w, h=h, H_=H, W_=W)
-        for name, kern, plain, lib in (
-                ("fwd_transform", lambda: tr.fwd_batch(x, DCT2, DCT2, 8),
-                 lambda: tr.fwd_batch_plain(x, DCT2, DCT2, 8),
-                 lambda: fwd_f64(torch, x, mw, mh, s1, s2, keep_w, keep_h)),
-                ("inv_transform", lambda: tr.inv_batch(dq, DCT2, DCT2, 8),
-                 lambda: tr.inv_batch_plain(dq, DCT2, DCT2, 8),
-                 lambda: inv_f64(torch, dq, mw, mh, i1, i2)),
-                ("quant_levels", lambda: qu.quant_batch(c, QP, 8),
-                 lambda: qu.quant_batch_plain(c, QP, 8), None),
-                ("dequant_levels", lambda: qu.dequant_batch(lv, QP, 8),
-                 lambda: qu.dequant_batch_plain(lv, QP, 8), None)):
-            timed(name, kern, plain, f"{w}x{h}", **shape,
-                  **({"in_bytes": 2} if name == "quant_levels" else {}))
-            if lib is not None:
-                lib_ms = time_ms(torch, lib, 20)
-                library_ms[name] = (library_ms[name] or 0.0) + lib_ms
-                print(f"  {name} {w}x{h}: {lib_ms:.4f} ms float64 "
-                      "torch.matmul chain", flush=True)
-    print(f"phase 4d transform and quant kernels: {checks - n0} comparisons, "
-          "all equal", flush=True)
-
-    # the slice's own path: the frame's residuals through the four batched
-    # entry points per class, the output held against the numpy host
-    # functions (no int32 edge on these inputs) on sampled blocks
-    resid = {(w, h): tr_inputs(w, h, 8)["frame"] for (w, h) in dct2_cls}
-
-    def round_trip():
-        return {k: tr.inv_batch(qu.dequant_batch(qu.quant_batch(
-            tr.fwd_batch(x), QP), QP)) for k, x in resid.items()}
-
-    kernels.reset_launches()
-    recon = round_trip()
-    torch.cuda.synchronize()
-    expect("transform round trip", dict(kernels.LAUNCHES),
-           dict.fromkeys(TR_KERNELS, len(dct2_cls)))
-    for (w, h), r in recon.items():
-        xs_np, r_np = resid[(w, h)].cpu().numpy(), r.cpu().numpy()
-        for b in np.linspace(0, len(xs_np) - 1, 8).astype(int):
-            c_np = tr.fwd_transform_2d(xs_np[b])
-            want = tr.inv_transform_2d(qu.dequant(
-                qu.quant(c_np.astype(np.int32), QP).astype(np.int32), QP)
-                .astype(np.int32))
-            if r_np[b].dtype != np.int16 or not np.array_equal(r_np[b], want):
-                fail(f"transform round trip {w}x{h} block {b}: differs from "
-                     "the numpy host functions")
-    print("phase 4d transform round trip: launches "
-          + json.dumps({k: counts["transform round trip"][k]
-                        for k in TR_KERNELS})
-          + ", sampled blocks equal the numpy host functions", flush=True)
-    print(busy_share(torch, round_trip), flush=True)
-
     def n_classes(enc):
         return len(enc.slice_enc._fused_entries_c)
 
@@ -2098,6 +2127,7 @@ def main() -> int:
             fail(f"{path} path: the native entropy library did not build")
 
     # --- 5. the all-intra path ----------------------------------------------
+    stamp("5")
     clip = [FramePlanes(*f) for f in frames]
     encode(Encoder(cfg, device=dev), FramePlanes, clip[:2])    # warm-up
     torch.cuda.synchronize()
@@ -2124,6 +2154,7 @@ def main() -> int:
                                            FramePlanes, clip)), flush=True)
 
     # --- 6. the low-delay path ----------------------------------------------
+    stamp("6")
     lcfg = ld_config(Config)
     seq = [clip[i % FRAMES] for i in range(LD_FRAMES)]
     encode(Encoder(lcfg, device=dev), FramePlanes, seq[:3])     # warm-up
@@ -2170,6 +2201,15 @@ def main() -> int:
         finally:
             SliceEncoder._refine_inter_leaves = refine
 
+    def profiled(run):
+        """run() under the profiler (one encode gives both its wall and
+        its device busy time) -> (run's result, the busy line with every
+        kernel)."""
+        got = {}
+        busy = busy_share(torch, lambda: got.setdefault("r", run()),
+                          every=True)
+        return got["r"], busy
+
     def timed_encode(pcfg, pclip):
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -2179,12 +2219,13 @@ def main() -> int:
         return penc, pouts, time.perf_counter() - t0, dict(kernels.LAUNCHES)
 
     # --- 6b. the low-delay path with rdoq on --------------------------------
+    stamp("6b")
     qcfg = rdoq_ld_config(Config)
     qseq = clip[:RDOQ_FRAMES]
     encode(Encoder(qcfg, device=dev), FramePlanes, qseq[:2])    # warm-up
     torch.cuda.synchronize()
-    (qenc, qouts, qwall, launches), k8_q = counting_k8(
-        lambda: timed_encode(qcfg, qseq))
+    ((qenc, qouts, qwall, launches), k8_q), qbusy = profiled(
+        lambda: counting_k8(lambda: timed_encode(qcfg, qseq)))
     native("rdoq LD", qenc)
     if len(qouts) != RDOQ_FRAMES:
         fail(f"rdoq LD path returned {len(qouts)} of {RDOQ_FRAMES} frames")
@@ -2196,17 +2237,16 @@ def main() -> int:
             "pseudo_recon": n_p, "leaf_qpel": k8_q})
     print(f"phase 6b rdoq LD path: {RDOQ_FRAMES} frames {W}x{H} QP{LD_QP} "
           f"({n_p} P/B, {k8_q} with inter leaves) in {qwall:.3f} s = "
-          f"{RDOQ_FRAMES / qwall:.3f} fps wall, "
+          f"{RDOQ_FRAMES / qwall:.3f} fps wall (profiled), "
           f"{sum(len(o[0]) for o in qouts)} bytes, launches "
           + json.dumps(launches), flush=True)
-    print(busy_share(torch, lambda: encode(Encoder(qcfg, device=dev),
-                                           FramePlanes, qseq), every=True),
-          flush=True)
+    print(qbusy, flush=True)
 
     # --- 7. the dense inter path --------------------------------------------
+    stamp("7")
     rclip = clip[:RA_FRAMES]
-    (denc, douts, dwall, launches), k8_d = counting_k8(
-        lambda: timed_encode(dcfg, rclip))
+    ((denc, douts, dwall, launches), k8_d), dbusy = profiled(
+        lambda: counting_k8(lambda: timed_encode(dcfg, rclip)))
     native("dense RA", denc)
     if len(douts) != RA_FRAMES:
         fail(f"dense path returned {len(douts)} of {RA_FRAMES} frames")
@@ -2227,13 +2267,12 @@ def main() -> int:
             "leaf_qpel": k8_d})
     print(f"phase 7 dense path: {RA_FRAMES} frames {W}x{H} QP{LD_QP} RA GOP8 "
           f"ime_algorithm=2 rdoq in {dwall:.3f} s = {RA_FRAMES / dwall:.3f} "
-          f"fps wall, {sum(len(o[0]) for o in douts)} bytes, launches "
-          + json.dumps(launches), flush=True)
-    print(busy_share(torch, lambda: encode(Encoder(dcfg, device=dev),
-                                           FramePlanes, rclip), every=True),
-          flush=True)
+          f"fps wall (profiled), {sum(len(o[0]) for o in douts)} bytes, "
+          "launches " + json.dumps(launches), flush=True)
+    print(dbusy, flush=True)
 
     # --- 7b. the MIP and MTS paths ------------------------------------------
+    stamp("7b")
     mcfg, tcfg = mip_config(Config), mts_config(Config)
     tclip = clip[:TOOL_FRAMES]
     # every class dispatch_blocks / search_blocks is called for
@@ -2247,13 +2286,8 @@ def main() -> int:
                            "mip_preds": n_cls, "refs_blocks": n_cls}),
             ("MTS", tcfg, {"predict67": n_cls, "satd67": n_cls,
                            "rd_cost": n_cls, "mts_search": n_mts})):
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        penc = Encoder(pcfg, device=dev)
-        pouts = encode(penc, FramePlanes, tclip)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        (penc, pouts, pwall, launches), pbusy = profiled(
+            lambda: timed_encode(pcfg, tclip))
         native(path, penc)
         if len(pouts) != TOOL_FRAMES:
             fail(f"{path} path returned {len(pouts)} of {TOOL_FRAMES} frames")
@@ -2265,31 +2299,25 @@ def main() -> int:
         tool_outs[path] = pouts
         print(f"phase 7b {path} path: {TOOL_FRAMES} frames {W}x{H} QP{QP} "
               f"all-intra, {n_cls} classes ({n_mts} up to 32x32), in "
-              f"{pwall:.3f} s = {TOOL_FRAMES / pwall:.3f} fps wall, "
-              f"{sum(len(o[0]) for o in pouts)} bytes, launches "
+              f"{pwall:.3f} s = {TOOL_FRAMES / pwall:.3f} fps wall "
+              f"(profiled), {sum(len(o[0]) for o in pouts)} bytes, launches "
               + json.dumps(launches), flush=True)
-        print(busy_share(torch, lambda: encode(Encoder(pcfg, device=dev),
-                                               FramePlanes, tclip),
-                         every=True), flush=True)
+        print(pbusy, flush=True)
 
     # --- 7c. the per-class inter search and the rough search paths ---------
+    stamp("7c")
     def run_path(path, pcfg, pclip, warm):
         encode(Encoder(pcfg, device=dev), FramePlanes, pclip[:warm])
         torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        penc = Encoder(pcfg, device=dev)
-        pouts = encode(penc, FramePlanes, pclip)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        (penc, pouts, pwall, launches), pbusy = profiled(
+            lambda: timed_encode(pcfg, pclip))
         native(path, penc)
         if len(pouts) != len(pclip):
             fail(f"{path} path returned {len(pouts)} of {len(pclip)} frames")
         for au, rec, _fs, _refs, _src in pouts:
             if not au or rec.y.shape != (H, W) or not np.isfinite(rec.y).all():
                 fail(f"{path} path produced an empty AU or a malformed recon")
-        return penc, pouts, pwall, launches
+        return penc, pouts, pwall, launches, pbusy
 
     def combined_counts(penc, pouts, pcfg):
         """Launches of a configuration whose P/B frames run search_combined
@@ -2336,7 +2364,8 @@ def main() -> int:
             ("10-bit LD", l10cfg, clip10, 2),
             ("slow RA", sra_cfg, frames[:RA_FRAMES], 2),
             ("rough", rcfg, frames[:ROUGH_FRAMES], 1)):
-        penc, pouts, pwall, launches = run_path(path, pcfg, pclip, warm)
+        penc, pouts, pwall, launches, pbusy = run_path(path, pcfg, pclip,
+                                                       warm)
         if path == "rough":
             n_r = len(search_classes(PartitionSearch(ctrl, rcfg, qp=QP)))
             want = {k: v * n_r * ROUGH_FRAMES for k, v in (
@@ -2355,21 +2384,18 @@ def main() -> int:
         types = "".join(SLICE[o[2].slicetype] for o in pouts)
         print(f"phase 7c {path} path: {len(pclip)} frames {W}x{H} "
               f"{pcfg.input_bitdepth}-bit QP{pcfg.qp} ({types}) in "
-              f"{pwall:.3f} s = {len(pclip) / pwall:.3f} fps wall, "
-              f"{sum(len(o[0]) for o in pouts)} bytes, launches "
+              f"{pwall:.3f} s = {len(pclip) / pwall:.3f} fps wall "
+              f"(profiled), {sum(len(o[0]) for o in pouts)} bytes, launches "
               + json.dumps(launches), flush=True)
-        print(busy_share(torch, lambda: encode(Encoder(pcfg, device=dev),
-                                               FramePlanes, pclip),
-                         every=True), flush=True)
+        print(pbusy, flush=True)
 
     # --- 8. the card against the CPU ----------------------------------------
-    def card_vs_cpu(path, config, got, n, enc_clip=None, ref=None):
+    stamp("8")
+    cpu8_ref = cpu_half(cpu8, 8)
+
+    def card_vs_cpu(path, got, n, ref):
         """The card's first n frames against the CPU path's: ref, its
-        (access unit, recon digest) per frame from the child process, or
-        encoded here from enc_clip."""
-        if ref is None:
-            ref = [(o[0], recon_digest(o[1])) for o in encode(
-                Encoder(config, device="cpu"), FramePlanes, enc_clip)]
+        (access unit, recon digest) per frame from the child processes."""
         if len(ref) < n:
             fail(f"{path}: the CPU path gave {len(ref)} of {n} frames")
         for i in range(n):
@@ -2379,27 +2405,27 @@ def main() -> int:
         return ", ".join(f"{SLICE[got[i][2].slicetype]} poc {got[i][2].poc} "
                          f"{len(got[i][0])} B" for i in range(n))
 
-    msg = [card_vs_cpu("all-intra", cfg, outs, 1, clip[:1])]
-    msg.append(card_vs_cpu("low-delay", lcfg, louts, 3, seq[:3]))
-    msg.append(card_vs_cpu("rdoq LD", qcfg, qouts, 2, qseq[:2]))
+    msg = [card_vs_cpu(p, got, n, cpu8_ref[p]) for p, got, n in (
+        ("all-intra", outs, 1), ("low-delay", louts, 3),
+        ("rdoq LD", qouts, 2))]
     # three frames of the dense path: the IDR, then the truncated GOP's
     # POC 2 (P) and POC 1 (B)
     dshort = encode(Encoder(dcfg, device=dev), FramePlanes, rclip[:3])
-    msg.append(card_vs_cpu("dense RA", dcfg, dshort, 3, rclip[:3]))
+    msg.append(card_vs_cpu("dense RA", dshort, 3, cpu8_ref["dense RA"]))
     if {o[2].slicetype for o in dshort} != {SliceType.I, SliceType.P,
                                              SliceType.B}:
         fail("dense RA card-vs-CPU clip lacks an I, P or B slice")
-    msg.append(card_vs_cpu("MIP", mcfg, tool_outs["MIP"], 1, clip[:1]))
-    msg.append(card_vs_cpu("MTS", tcfg, tool_outs["MTS"], 1, clip[:1]))
-    msg.append(card_vs_cpu("10-bit LD", l10cfg, per_class["10-bit LD"], 2,
-                           clip10[:2]))
+    msg += [card_vs_cpu(p, got, n, cpu8_ref[p]) for p, got, n in (
+        ("MIP", tool_outs["MIP"], 1), ("MTS", tool_outs["MTS"], 1),
+        ("10-bit LD", per_class["10-bit LD"], 2))]
     # three frames of the slow-tools RA path: the IDR, POC 2 (P), POC 1 (B)
     sshort = encode(Encoder(sra_cfg, device=dev), FramePlanes, rclip[:3])
     if {o[2].slicetype for o in sshort} != {SliceType.I, SliceType.P,
                                              SliceType.B}:
         fail("slow RA card-vs-CPU clip lacks an I, P or B slice")
-    msg.append(card_vs_cpu("slow RA", sra_cfg, sshort, 3, rclip[:3]))
-    msg.append(card_vs_cpu("rough", rcfg, per_class["rough"], 1, clip[:1]))
+    msg.append(card_vs_cpu("slow RA", sshort, 3, cpu8_ref["slow RA"]))
+    msg.append(card_vs_cpu("rough", per_class["rough"], 1,
+                           cpu8_ref["rough"]))
     # the LD path at 136x72: its plane pads to 144x80, so K5's last thread
     # block holds one tile, and the last CTU row is partial
     s_cfg = ld_config(Config, 136, 72)
@@ -2408,10 +2434,11 @@ def main() -> int:
     s_outs = encode(Encoder(s_cfg, device=dev), FramePlanes, s_clip)
     if kernels.LAUNCHES["pseudo_recon"] - n_k5 != 2:
         fail("LD 136x72: K5 did not launch once per P frame")
-    msg.append(card_vs_cpu("LD 136x72", s_cfg, s_outs, 3, s_clip))
+    msg.append(card_vs_cpu("LD 136x72", s_outs, 3, cpu8_ref["LD 136x72"]))
     print("phase 8 card vs CPU byte-identical: " + "; ".join(msg), flush=True)
 
     # --- 9. the mesh encoders, the CLI and the entry points ----------------
+    stamp("9")
     from uvg266_tpu_torch import graft_entry
     from uvg266_tpu_torch.oracle.ref_decoder import decode_stream
     from uvg266_tpu_torch.parallel import (MeshEncoder, MeshGopEncoder,
@@ -2676,6 +2703,7 @@ def main() -> int:
           "all equal", flush=True)
 
     # --- 10. small clips through the oracle decoder -------------------------
+    stamp("10")
     for label, mk in (("all-intra", bench_config), ("low-delay", ld_config),
                       ("rdoq LD", rdoq_ld_config),
                       ("dense RA", dense_config), ("MIP", mip_config),
@@ -2707,28 +2735,239 @@ def main() -> int:
               + "".join(SLICE[o[2].slicetype] for o in sout)
               + ") decode to the encoder's recon", flush=True)
 
-    # --- 11. the presets and the host tools ---------------------------------
-    t0 = time.perf_counter()
-    try:
-        cpu_ref, cpu_secs = cpu_half.get(timeout=600)
-    except multiprocessing.TimeoutError:
-        fail("phase 11: the CPU half did not finish within 600 s")
-    except Exception as e:        # raised in the child, re-raised by get()
-        fail(f"phase 11: the CPU half failed: {e!r}")
-    pool.close()
-    pool.join()
-    print(f"phase 11 CPU half: {len(cpu_ref)} encodes in a child process "
-          f"({CHILD_THREADS} threads) in {cpu_secs:.3f} s, started "
-          f"{t0 - t_child:.3f} s before this phase, waited "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    # --- 4d. the batched transforms and quantisers --------------------------
+    # (run here, after phase 10: only this phase launches K13 and K14, whose
+    # sources build in a process of their own from phase 2 on)
+    stamp("4d")
+    t_late = time.perf_counter()
+    log, _ = late.communicate()
+    if late.returncode != 0:
+        fail(f"the build of {', '.join(LATE_SOURCES)} failed:\n{log}")
+    kernels.build(LATE_SOURCES)            # built: only checks the cache
+    print(f"phase 4d build of {', '.join(LATE_SOURCES)}: done "
+          f"{time.perf_counter() - t_build:.3f} s after phase 2 began, waited "
+          f"{time.perf_counter() - t_late:.3f} s", flush=True)
+    ptxas(LATE_SOURCES)
+    n0 = checks
 
-    def fused_counts(penc, pouts, k8):
-        """Launches of a path whose frames all take the fused search: K1-K4
-        once per class and frame (the I frames' search, the P/B frames'
-        intra screen), K5 once per P/B frame, K8 once per P/B frame with
-        inter leaves (k8)."""
-        n_p = sum(1 for o in pouts if o[2].slicetype != SliceType.I)
-        return {**dict.fromkeys(INTRA_KERNELS, n_classes(penc) * len(pouts)),
+    def tiles(plane, w, h):
+        """The w x h blocks of a plane, cropped to whole blocks."""
+        hh, ww = H // h * h, W // w * w
+        return plane[:hh, :ww].reshape(hh // h, h, ww // w, w) \
+            .transpose(1, 2).reshape(-1, h, w).contiguous()
+
+    def tr_inputs(w, h, bd):
+        """The frame's residuals (the clip scaled to the bit depth, minus
+        1 << (bd - 1)), random residuals, int16-range inputs, and the int32
+        extremes (random int32, a checkerboard of INT32_MAX and INT32_MIN:
+        the butterflies' sums wrap there)."""
+        res = tiles(frame_src, w, h) * (1 << (bd - 8)) - (1 << (bd - 1))
+        mx = (1 << bd) - 1
+        return {"frame": res,
+                "rand": torch.randint(-mx, mx + 1, res.shape, generator=gen,
+                                      device=dev, dtype=torch.int32),
+                "int16": torch.randint(-32767, 32768, res.shape,
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32),
+                "int32": int32_extremes(res.shape)}
+
+    def int32_extremes(shape):
+        """Random int32 blocks, and every fourth a checkerboard of
+        INT32_MAX and INT32_MIN."""
+        x = torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                          device=dev, dtype=torch.int64)
+        h, w = shape[-2:]
+        board = (torch.arange(h, device=dev)[:, None]
+                 + torch.arange(w, device=dev)[None]) % 2 == 0
+        x[::4] = torch.where(board, 2 ** 31 - 1, -2 ** 31)
+        return x.to(torch.int32)
+
+    def at_offset(t, o):
+        """A copy of t that starts o elements past a 16-byte boundary."""
+        flat = torch.empty(t.numel() + o, dtype=t.dtype, device=dev)
+        view = flat[o:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    edges = torch.tensor([0, 1, -1, 200000, -200000, 2 ** 31 - 1, -2 ** 31,
+                          32767, -32768, 26215, -26215, 29127],
+                         dtype=torch.int32, device=dev)
+    dct2_cls = [(w, h) for (w, h, _g) in classes]
+    tr_shapes = [(w, h, DCT2, DCT2) for (w, h) in dct2_cls + [(32, 8),
+                                                              (8, 32)]]
+    tr_shapes += [(w, h, th, tv) for (w, h) in dct2_cls + [(32, 8), (8, 32)]
+                  if max(w, h) <= 32
+                  for th in (DST7, DCT8) for tv in (DST7, DCT8)]
+    for (w, h, th, tv) in tr_shapes:
+        for bd in (8, 10):
+            for tag, x in tr_inputs(w, h, bd).items():
+                what = f"{w}x{h} {th}/{tv} {bd}-bit {tag}"
+                c = tr.fwd_batch(x, th, tv, bd)
+                same("fwd_transform", what, c,
+                     tr.fwd_batch_plain(x, th, tv, bd))
+                cc = torch.cat([c.to(torch.int32), x])
+                same("inv_transform", what, tr.inv_batch(cc, th, tv, bd),
+                     tr.inv_batch_plain(cc, th, tv, bd))
+                if th != DCT2 or tv != DCT2:
+                    continue
+                # the quantisers on the coefficients, int16-range values
+                # and the int32 edges; on K13's int16 coefficients as they
+                # are, and both at an element offset of 1, 2 and 4
+                lv = cc.clone()
+                lv[0].view(-1)[:min(edges.numel(), w * h)] = \
+                    edges[:w * h]
+                levels = {"int32": lv, "int16": c}
+                if tag == "frame":
+                    levels.update({f"{k} +{o}": at_offset(v, o)
+                                   for k, v in (("int32", lv), ("int16", c))
+                                   for o in (1, 2, 4)})
+                for qp in TR_QPS + (51 if bd == 8 else 63,):
+                    for lk, lx in levels.items():
+                        for intra in (True, False):
+                            same("quant_levels",
+                                 f"{what} {lk} qp{qp} {intra}",
+                                 qu.quant_batch(lx, qp, bd, intra),
+                                 qu.quant_batch_plain(lx, qp, bd, intra))
+                        same("dequant_levels", f"{what} {lk} qp{qp}",
+                             qu.dequant_batch(lx, qp, bd),
+                             qu.dequant_batch_plain(lx, qp, bd))
+    # K13 at every lattice shape (its templates) and at the generic shapes
+    # (a dimension of 1 or 2, 10 bits), one block more than a thread block
+    # holds, on residuals and the int32 extremes; K14 on element counts that
+    # are not multiples of 8 (2x1 and 1x1 blocks at 10 bits, int16 and
+    # int32, at an offset too)
+    sizes = (4, 8, 16, 32, 64)
+    for (w, h) in ([(w, h) for w in sizes for h in sizes]
+                   + [(1, 8), (8, 1), (2, 4), (2, 64), (64, 2), (1, 1)]):
+        bds = (10,) if min(w, h) < 4 else (8, 10)
+        nblk = max(1, 2048 // (w * h)) + 1
+        for bd in bds:
+            mx = (1 << bd) - 1
+            x = torch.cat([torch.randint(-mx, mx + 1, (nblk, h, w),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32),
+                           int32_extremes((4, h, w))])
+            what = f"{w}x{h} {bd}-bit lattice"
+            c = tr.fwd_batch(x, DCT2, DCT2, bd)
+            same("fwd_transform", what, c, tr.fwd_batch_plain(x, DCT2,
+                                                               DCT2, bd))
+            cc = torch.cat([c.to(torch.int32), x])
+            same("inv_transform", what, tr.inv_batch(cc, DCT2, DCT2, bd),
+                 tr.inv_batch_plain(cc, DCT2, DCT2, bd))
+    odd = torch.cat([edges, torch.randint(-40000, 40000, (2 * 37,),
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32)])
+    for shape in ((43, 2, 1), (86, 1, 1)):
+        for lk, lx in (("int32", odd.view(shape)),
+                       ("int16", odd.to(torch.int16).view(shape)),
+                       ("int32 +1", at_offset(odd.view(shape), 1)),
+                       ("int16 +1", at_offset(odd.to(torch.int16).view(shape),
+                                              1))):
+            for qp in TR_QPS + (63,):
+                what = f"{shape[2]}x{shape[1]} 10-bit {lk} qp{qp}"
+                same("quant_levels", what, qu.quant_batch(lx, qp, 10),
+                     qu.quant_batch_plain(lx, qp, 10))
+                same("dequant_levels", what, qu.dequant_batch(lx, qp, 10),
+                     qu.dequant_batch_plain(lx, qp, 10))
+    # the wrap edges of the reference: 8x4 at 10 bits, qp_scaled 63, levels
+    # of magnitude 26215 and more (level * (80 << 10) passes 2^31), and the
+    # quant of 200000 at 4x4 10 bits, qp_scaled 0
+    big = torch.randint(26215, 32768, (1024, 4, 8), generator=gen,
+                        device=dev, dtype=torch.int32)
+    big[1::2] = -big[1::2]
+    big[0, 0, :2] = torch.tensor([29127, -32768], dtype=torch.int32)
+    dq = qu.dequant_batch(big, 63, 10)
+    same("dequant_levels", "8x4 10-bit qp63 wrap", dq,
+         qu.dequant_batch_plain(big, 63, 10))
+    if dq[0, 0, :2].tolist() != [-32768, 32767]:
+        fail(f"dequant_levels: 29127 and -32768 at 8x4 10-bit qp63 gave "
+             f"{dq[0, 0, :2].tolist()}, the reference's wrap gives "
+             "[-32768, 32767]")
+    q200 = qu.quant_batch(torch.full((64, 4, 4), 200000, dtype=torch.int32,
+                                     device=dev), 0, 10)
+    if not bool((q200 == 7231).all()):
+        fail("quant_levels: 200000 at 4x4 10-bit qp0 is not the reference's "
+             "7231")
+    # times at the frame's residuals (8 bits, QP22), once per class; the
+    # float64 matmul chain as K13's library time, equal on these inputs
+    for (w, h) in dct2_cls:
+        x = tr_inputs(w, h, 8)["frame"]
+        s1, s2 = tr.fwd_shifts(w, h, 8)
+        i1, i2 = tr.inv_shifts(8)
+        keep_w, keep_h = tr.zero_out(w, DCT2, DCT2, h)
+        mw = device_matrix(DCT2, w, str(dev)).double()
+        mh = device_matrix(DCT2, h, str(dev)).double()
+        c = tr.fwd_batch(x, DCT2, DCT2, 8)
+        lv = qu.quant_batch(c, QP, 8)
+        dq = qu.dequant_batch(lv, QP, 8)
+        same("fwd_transform", f"{w}x{h} float64 chain", c,
+             fwd_f64(torch, x, mw, mh, s1, s2, keep_w, keep_h))
+        same("inv_transform", f"{w}x{h} float64 chain",
+             tr.inv_batch(dq, DCT2, DCT2, 8),
+             inv_f64(torch, dq, mw, mh, i1, i2))
+        shape = dict(B=x.shape[0], w=w, h=h, H_=H, W_=W)
+        for name, kern, plain, lib in (
+                ("fwd_transform", lambda: tr.fwd_batch(x, DCT2, DCT2, 8),
+                 lambda: tr.fwd_batch_plain(x, DCT2, DCT2, 8),
+                 lambda: fwd_f64(torch, x, mw, mh, s1, s2, keep_w, keep_h)),
+                ("inv_transform", lambda: tr.inv_batch(dq, DCT2, DCT2, 8),
+                 lambda: tr.inv_batch_plain(dq, DCT2, DCT2, 8),
+                 lambda: inv_f64(torch, dq, mw, mh, i1, i2)),
+                ("quant_levels", lambda: qu.quant_batch(c, QP, 8),
+                 lambda: qu.quant_batch_plain(c, QP, 8), None),
+                ("dequant_levels", lambda: qu.dequant_batch(lv, QP, 8),
+                 lambda: qu.dequant_batch_plain(lv, QP, 8), None)):
+            timed(name, kern, plain, f"{w}x{h}", **shape,
+                  **({"in_bytes": 2} if name == "quant_levels" else {}))
+            if lib is not None:
+                lib_ms = time_ms(torch, lib, 20)
+                library_ms[name] = (library_ms[name] or 0.0) + lib_ms
+                print(f"  {name} {w}x{h}: {lib_ms:.4f} ms float64 "
+                      "torch.matmul chain", flush=True)
+    print(f"phase 4d transform and quant kernels: {checks - n0} comparisons, "
+          "all equal", flush=True)
+
+    # the slice's own path: the frame's residuals through the four batched
+    # entry points per class, the output held against the numpy host
+    # functions (no int32 edge on these inputs) on sampled blocks
+    resid = {(w, h): tr_inputs(w, h, 8)["frame"] for (w, h) in dct2_cls}
+
+    def round_trip():
+        return {k: tr.inv_batch(qu.dequant_batch(qu.quant_batch(
+            tr.fwd_batch(x), QP), QP)) for k, x in resid.items()}
+
+    kernels.reset_launches()
+    recon = round_trip()
+    torch.cuda.synchronize()
+    expect("transform round trip", dict(kernels.LAUNCHES),
+           dict.fromkeys(TR_KERNELS, len(dct2_cls)))
+    for (w, h), r in recon.items():
+        xs_np, r_np = resid[(w, h)].cpu().numpy(), r.cpu().numpy()
+        for b in np.linspace(0, len(xs_np) - 1, 8).astype(int):
+            c_np = tr.fwd_transform_2d(xs_np[b])
+            want = tr.inv_transform_2d(qu.dequant(
+                qu.quant(c_np.astype(np.int32), QP).astype(np.int32), QP)
+                .astype(np.int32))
+            if r_np[b].dtype != np.int16 or not np.array_equal(r_np[b], want):
+                fail(f"transform round trip {w}x{h} block {b}: differs from "
+                     "the numpy host functions")
+    print("phase 4d transform round trip: launches "
+          + json.dumps({k: counts["transform round trip"][k]
+                        for k in TR_KERNELS})
+          + ", sampled blocks equal the numpy host functions", flush=True)
+    print(busy_share(torch, round_trip), flush=True)
+
+    # --- 11. the presets and the host tools ---------------------------------
+    stamp("11")
+    cpu_ref = cpu_half(cpu11, 11)
+
+    def fused_counts(n_cls, types, k8=0):
+        """Launches of a path whose frames (slice types ``types``) all take
+        the fused search over n_cls classes: K1-K4 once per class and frame
+        (the I frames' search, the P/B frames' intra screen), K5 once per
+        P/B frame, K8 once per P/B frame with inter leaves (k8)."""
+        n_p = sum(1 for t in types if t != "I")
+        return {**dict.fromkeys(INTRA_KERNELS, n_cls * len(types)),
                 "pseudo_recon": n_p, "leaf_qpel": k8}
 
     def phase11_run(label, pcfg, n, profiled=False):
@@ -2755,9 +2994,10 @@ def main() -> int:
             # search_blocks / dispatch_blocks and search_combined per class
             want = combined_counts(penc, pouts, pcfg)
         else:
-            want = fused_counts(penc, pouts, k8)
+            want = fused_counts(n_classes(penc), "".join(
+                SLICE[o[2].slicetype] for o in pouts), k8)
         expect(label, launches, want)
-        msg = card_vs_cpu(label, pcfg, pouts, n, ref=cpu_ref[label])
+        msg = card_vs_cpu(label, pouts, n, cpu_ref[label])
         return penc, pouts, pwall, launches, pclip, msg, busy
 
     # 11a: every preset at 832x480; slower..placebo (40-50 s an encode on
@@ -2801,7 +3041,323 @@ def main() -> int:
           f"({m}), launches " + json.dumps(
               {k: v for k, v in launches.items() if v}), flush=True)
 
-    # --- 12. results --------------------------------------------------------
+    # --- 12. the reference's 1080p configurations and a 2160p batch --------
+    stamp("12")
+    t12 = time.perf_counter()
+    from uvg266_tpu_torch.tools.bdrate import CONFIGS
+    from uvg266_tpu_torch.tools.bdrate import synth_clip as bd_clip
+    from uvg266_tpu_torch.tools.bdrate import write_yuv
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           CTC_FIXTURE)) as fh:
+        fixture = json.load(fh)["encodes"]
+    for label, (_c, _q, n, _e, _w, _h) in CTC.items():
+        if len(fixture.get(label, {}).get("port", ())) != n:
+            fail(f"phase 12: {CTC_FIXTURE} has no {n} frames of {label}")
+
+    # K1-K4 at the 2160p batch's 64x64 and 8x8 classes (three 10-bit
+    # frames: K2's output is 77.6% of 2^31 elements) against their plain
+    # versions on the card, tolerance 0; the large outputs compared in
+    # pieces of 2^26 elements
+    n0 = checks
+    ucfg = ctc_config("2160p ai10 q22")
+    uctrl = EncoderControl(ucfg)
+    uent = SliceEncoder(ucfg, uctrl, device=dev)._fused_entries(
+        PartitionSearch(uctrl, ucfg, qp=ucfg.qp))
+    usrc = torch.from_numpy(np.stack(
+        [f[0] for f in ctc_clip(ucfg.width, ucfg.height, 3, 10)])).to(dev)
+    uft = frame_tables(ucfg.qp, "cuda")
+
+    def same_big(name, what, a, b):
+        a, b = a.reshape(-1), b.reshape(-1)
+        if a.shape != b.shape:
+            fail(f"{name} {what}: {a.shape} vs {b.shape}")
+        for i in range(0, a.numel(), 1 << 26):
+            same(name, f"{what} [{i}:]", a[i:i + (1 << 26)],
+                 b[i:i + (1 << 26)])
+    for (_k, w, h, _p, g) in uent:
+        if w not in (64, 8):
+            continue
+        what = f"2160p F=3 {w}x{h} B={3 * g[4] * g[5]}"
+        tabs = device_tables(w, h, 10, "cuda")
+        refs, blocks = ib.refs_blocks_grid(usrc, w, h, g)
+        for o, a, b in zip(("refs", "blocks"), (refs, blocks),
+                           ib.refs_blocks_grid_plain(usrc, w, h, g)):
+            same_big("refs_blocks_grid", f"{what} {o}", a, b)
+        preds = ib.predict67(refs, tabs)
+        same_big("predict67", what, preds, ib.predict67_plain(refs, tabs))
+        satds = ib.satd67(preds, blocks)
+        same("satd67", what, satds, ib.satd67_plain(preds, blocks))
+        args = (preds, blocks, satds, uctrl.luma_qp_scaled(ucfg.qp),
+                float(np.float32(qp_to_lambda(ucfg.qp))), uft["wts"],
+                uft["mode_bits"], tabs, 10)
+        for o, a, b in zip(("best", "rd", "satd"), rc.rd_cost(*args),
+                           rc.rd_cost_plain(*args)):
+            same("rd_cost", f"{what} {o}", a, b)
+        del refs, blocks, preds, satds, args
+    del usrc
+    torch.cuda.empty_cache()
+    print(f"phase 12 K1-K4 at the 2160p batch's 64x64 and 8x8 classes: "
+          f"{checks - n0} comparisons, all equal", flush=True)
+
+    # the wrappers of K1-K6, K8, K9a and K9b record their calls on the
+    # encodes that time them at 1080p (TIMED_AT), and the largest element
+    # offset of every tensor they pass or get on the 2160p batch. K3's and
+    # K4's calls keep no predictions (560 MB a class and frame): the timing
+    # makes each class's again from K2's call of the same class
+    wrapped = {"refs_blocks_grid": ib, "predict67": ib, "satd67": ib,
+               "rd_cost": rc, "pseudo_recon": pr, "rd_cost_pred": rc,
+               "leaf_qpel": mf, "fullpel_search": me, "frac_search": me}
+    plain_fn = {k: getattr(m, k) for k, m in wrapped.items()}
+    rec12 = {"mode": None, "names": (), "calls": [], "largest": {}}
+
+    def recording(name, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            if rec12["mode"] == "calls" and name in rec12["names"]:
+                if name in ("satd67", "rd_cost"):
+                    a = (None, *a[1:])
+                rec12["calls"].append((name, a, k))
+            elif rec12["mode"] == "largest":
+                ts = [t for t in (*a, *k.values(),
+                                  *(out if isinstance(out, tuple) else (out,)))
+                      if isinstance(t, torch.Tensor)]
+                rec12["largest"][name] = max(rec12["largest"].get(name, 0),
+                                             max(t.numel() for t in ts) - 1)
+            return out
+        return call
+    for name, mod in wrapped.items():
+        setattr(mod, name, recording(name, plain_fn[name]))
+    # the kernels each encode's calls time (device ms a frame at 1080p)
+    TIMED_AT = {"1080p allintra q22": INTRA_KERNELS,
+                "1080p lowdelay q22": ("pseudo_recon",),
+                "1080p default q27": ("leaf_qpel",),
+                "1080p ld10 q27": ("fullpel_search", "frac_search",
+                                   "rd_cost_pred")}
+    at1080 = {}
+
+    def call_work(name, a, k):
+        """(bytes, operations) of one recorded call (work())."""
+        if name == "refs_blocks_grid":
+            s_, w_, h_, g_ = a[:4]
+            F_ = s_.shape[0] if s_.dim() == 3 else 1
+            return work(name, F_ * g_[4] * g_[5], w_, h_,
+                        F_ * s_.shape[-2], s_.shape[-1])
+        if name == "predict67":
+            modes = a[2] if len(a) > 2 else k.get("modes")
+            return work(name, a[0].shape[0], a[1]["w"], a[1]["h"], 0, 0,
+                        M=67 if modes is None else modes.shape[0])
+        if name in ("satd67", "rd_cost"):
+            B_, M_, h_, w_ = a[0].shape
+            return work(name, B_, w_, h_, 0, 0, M=M_)
+        if name == "pseudo_recon":
+            return work(name, 0, 16, 16, *a[0].shape)
+        if name == "rd_cost_pred":
+            B_, h_, w_ = a[0].shape
+            return work(name, B_, w_, h_, 0, 0)
+        if name == "leaf_qpel":
+            return work(name, 0, 8, 8, 0, 0, nt=a[0].shape[0], nl=a[3])
+        B_, h_, w_ = a[1].shape
+        if name == "fullpel_search":
+            return work(name, B_, w_, h_, *a[0].shape, r=a[4])
+        return work(name, B_, w_, h_, *a[0].shape,
+                    winner=bool(a[8] if len(a) > 8
+                                else k.get("winner_only", False)))
+
+    def time_calls(label, n_frames):
+        """Each recorded call replayed 10 times from a CUDA graph: device ms,
+        launches and bound a frame of encode ``label``, by kernel."""
+        per, k2_calls, preds = {}, [], {}
+        for name, a, k in rec12["calls"]:
+            fn = plain_fn[name]
+            if name == "predict67":
+                k2_calls.append((a, k))
+            elif a[0] is None:
+                # the predictions of K2's call of the same class
+                i = per.get(name, [0, 0])[1]
+                if i not in preds:
+                    preds.clear()
+                    pa, pk = k2_calls[i]
+                    preds[i] = plain_fn["predict67"](*pa, **pk)
+                a = (preds[i], *a[1:])
+            g_ms = graph_ms(torch, lambda: fn(*a, **k), 10)
+            b, o = call_work(name, a, k)
+            row = per.setdefault(name, [0.0, 0, 0, 0])
+            row[0] += g_ms
+            row[1] += 1
+            row[2] += b
+            row[3] += o
+        for name, (g_ms, n, b, o) in per.items():
+            tb, to = b / HBM_BYTES_PER_S, o / OPS_PER_S
+            at1080[name] = {
+                "path": label, "device_ms": g_ms / n_frames,
+                "launches": n / n_frames,
+                "bound_ms": max(tb, to) * 1e3 / n_frames,
+                "bound_by": "bytes" if tb >= to else "operations"}
+        rec12["calls"] = []
+        preds.clear()
+
+    def same_as_fixture(label, got, keys=("type", "au", "au_bytes", "recon",
+                                          "rec_out")):
+        want = fixture[label]["port"][:len(got)]
+        for i, (a, b) in enumerate(zip(got, want)):
+            for key in keys:
+                if a[key] != b[key]:
+                    fail(f"phase 12 {label} frame {i}: {key} {a[key]} "
+                         f"differs from the fixture's {b[key]}")
+
+    # a warm-up frame at 1920x1080 (the first call of each new shape)
+    first = next(iter(CTC))
+    encode(Encoder(ctc_config(first), device=dev), FramePlanes,
+           ctc_clip(*CTC[first][4:], 1))
+    n_cls_ld = None
+    for label, (conf, qp12, n12, entry, w12, h12) in CTC.items():
+        cfg12 = ctc_config(label)
+        bd12 = cfg12.input_bitdepth
+        frames12 = ctc_clip(w12, h12, n12, bd12)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if entry == "cli":
+            # the CLI as tools/bdrate.py run_ours runs it, in a subprocess
+            # that reports the launches its kernels made
+            with tempfile.TemporaryDirectory() as td:
+                yuv = os.path.join(td, "clip.yuv")
+                write_yuv(bd_clip(w12, h12, n12, seed=7), yuv)
+                out_f, rec_f = (os.path.join(td, "out.vvc"),
+                                os.path.join(td, "rec.yuv"))
+                argv = ["-i", yuv, "--input-res", f"{w12}x{h12}", "-q",
+                        str(qp12), "-n", str(n12), "-o", out_f, "--device",
+                        "cuda", "--rec-out", rec_f, *CONFIGS[conf][1]]
+                t0 = time.perf_counter()
+                r = subprocess.run([sys.executable, "-c", CLI_WITH_LAUNCHES,
+                                    *argv], capture_output=True, text=True,
+                                   timeout=600,
+                                   cwd=os.path.dirname(
+                                       os.path.abspath(__file__)))
+                wall12 = time.perf_counter() - t0
+                if r.returncode != 0:
+                    fail(f"phase 12 {label}: the CLI failed: "
+                         f"{r.stderr[-2000:]}")
+                with open(out_f, "rb") as fh:
+                    stream = fh.read()
+                with open(rec_f, "rb") as fh:
+                    rec_bytes = fh.read()
+            launches = json.loads(r.stdout.split("LAUNCHES ")[-1])
+            sizes = [f["au_bytes"] for f in fixture[label]["port"]]
+            if len(stream) != sum(sizes):
+                fail(f"phase 12 {label}: {len(stream)} bytes written, the "
+                     f"fixture's AUs hold {sum(sizes)}")
+            fsize = w12 * h12 * 3 // 2
+            got12, off = [], 0
+            for i, sz in enumerate(sizes):
+                got12.append({
+                    "au": hashlib.sha256(stream[off:off + sz]).hexdigest(),
+                    "rec_out": hashlib.sha256(
+                        rec_bytes[i * fsize:(i + 1) * fsize]).hexdigest()})
+                off += sz
+            same_as_fixture(label, got12, ("au", "rec_out"))
+            types = "".join(f["type"] for f in fixture[label]["port"])
+            expect(label, launches, fused_counts(n_cls_ld, types))
+            summary = [ln.strip() for ln in r.stdout.splitlines()
+                       if "Processed" in ln or "Total time" in ln]
+            print(f"phase 12 {label}: the CLI ({' '.join(CONFIGS[conf][1])})"
+                  f" in a subprocess, {n12} frames {w12}x{h12} ({types}) in "
+                  f"{wall12:.3f} s = {n12 / wall12:.3f} fps (subprocess wall, "
+                  f"start-up included), {len(stream)} bytes and its --rec-out"
+                  " equal the fixture, launches " + json.dumps(
+                      {k: v for k, v in launches.items() if v}) + "; "
+                  + " | ".join(summary), flush=True)
+            continue
+        timed_by = TIMED_AT.get(label, ())
+        rec12["mode"] = ("largest" if entry == "batch"
+                         else "calls" if timed_by else None)
+        rec12["names"] = timed_by
+        got = {}
+
+        def run12():
+            if entry == "batch":
+                t0 = time.perf_counter()
+                outs = ctc_encode(port_api(dev), cfg12, frames12, entry)
+                torch.cuda.synchronize()
+                return outs, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+            return counting_k8(lambda: timed_encode(
+                cfg12, [FramePlanes(*f) for f in frames12]))
+        kernels.reset_launches()
+        busy = busy_share(torch, lambda: got.setdefault("r", run12()),
+                          every=True)
+        peak = torch.cuda.max_memory_allocated()
+        rec12["mode"] = None
+        if entry == "batch":
+            outs12, wall12, launches = got["r"]
+            n_cls = len(search_classes(PartitionSearch(
+                EncoderControl(cfg12), cfg12, qp=qp12)))
+            want = dict.fromkeys(INTRA_KERNELS, n_cls)
+            types = "I" * n12
+        else:
+            (penc, pouts, wall12, launches), k8 = got["r"]
+            native(label, penc)
+            outs12 = [(o[0], o[1], int(o[2].slicetype)) for o in pouts]
+            types = "".join(SLICE[t] for _a, _r, t in outs12)
+            if conf == "ld10":
+                want = combined_counts(penc, pouts, cfg12)
+                if not want.get("fullpel_search"):
+                    fail(f"{label}: no inter class searched")
+            else:
+                want = fused_counts(n_classes(penc), types, k8)
+                if conf == "lowdelay":
+                    n_cls_ld = n_classes(penc)
+                if conf == "default" and k8 == 0:
+                    fail(f"{label}: no inter leaf refined")
+        if len(outs12) != n12:
+            fail(f"phase 12 {label} returned {len(outs12)} of {n12} frames")
+        expect(label, launches, want)
+        same_as_fixture(label, frame_digests(outs12, cfg12))
+        print(f"phase 12 {label}: {entry} entry, {n12} frames {w12}x{h12} "
+              f"{bd12}-bit QP{qp12} ({types}) in {wall12:.3f} s = "
+              f"{n12 / wall12:.3f} fps wall (profiled), "
+              f"{sum(len(o[0]) for o in outs12)} bytes, every frame's AU and "
+              f"recon equal the fixture, peak device memory {peak} B "
+              f"(max_memory_allocated), launches " + json.dumps(
+                  {k: v for k, v in launches.items() if v}), flush=True)
+        print(busy, flush=True)
+        if entry == "batch":
+            print(f"phase 12 {label}: largest element offset each wrapper's "
+                  "tensors reach, against 2^31 = 2147483648: " + ", ".join(
+                      f"{k} {v} ({v / 2 ** 31:.3f})"
+                      for k, v in rec12["largest"].items()), flush=True)
+            if max(rec12["largest"].values()) >= 2 ** 31:
+                fail(f"phase 12 {label}: an element offset reaches 2^31")
+        if timed_by:
+            time_calls(label, n12)
+        got.clear()
+        del outs12
+    for name, mod in wrapped.items():
+        setattr(mod, name, plain_fn[name])
+    for name in ("refs_blocks_grid", "predict67", "satd67", "rd_cost",
+                 "pseudo_recon", "rd_cost_pred", "leaf_qpel",
+                 "fullpel_search", "frac_search"):
+        a = at1080.get(name)
+        if a is None:
+            fail(f"phase 12: {name} was not timed at 1080p")
+        print(f"phase 12 {name} at 1920x1080 ({a['path']}): device "
+              f"{a['device_ms']:.4f} ms a frame on the graph, "
+              f"{a['launches']:.2f} launches a frame, bound "
+              f"{a['bound_ms']:.4f} ms ({a['bound_by']})"
+              + ("" if name not in INTRA_KERNELS + ("pseudo_recon",) else
+                 f"; {a['device_ms'] / dev_ms[name]:.2f}x this run's 832x480"
+                 f" graph time {dev_ms[name]:.4f} ms a frame"), flush=True)
+
+    # the children's phase-12 encodes against the fixture
+    ctc_ref = cpu_half(ctc_half, 12)
+    pool.close()
+    pool.join()
+    for label, n in CTC_CPU:
+        same_as_fixture(label, ctc_ref[label])
+    print(f"phase 12 CPU half: {', '.join(f'{k} ({n} frames)' for k, n in CTC_CPU)}"
+          f" equal the fixture on every frame; phase 12 took "
+          f"{time.perf_counter() - t12:.3f} s", flush=True)
+
+    # --- 13. results --------------------------------------------------------
+    stamp("13")
     rows = []
     for name in REPLACES:
         t_bytes = bytes_[name] / HBM_BYTES_PER_S
@@ -2828,8 +3384,13 @@ def main() -> int:
         if name == "rough_refine":
             # the row is the chain's; its two selection stages alone
             rows[-1]["stages"] = k12c_stages
-    print(f"phase 12 results: the smoke took {time.perf_counter() - t_start:.3f}"
-          " s from phase 1", flush=True)
+        if name in at1080:
+            # device ms, launches and bound a frame of a phase-12 encode
+            rows[-1]["at_1920x1080"] = at1080[name]
+    print(f"phase 13 results: the smoke took {time.perf_counter() - t_start:.3f}"
+          " s from phase 1; seconds by phase: " + ", ".join(
+              f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1) in zip(
+                  stamps, stamps[1:])), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind,

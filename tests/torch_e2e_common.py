@@ -93,9 +93,9 @@ def encode_ref(cfg, frames):
         mp.undo()
 
 
-def encode_port(cfg, frames):
-    """The port's encode on the CPU, counting its kernel wrappers' calls
-    -> (encoder, outputs, {wrapper: calls})."""
+def counted_calls(run):
+    """run() with the port's kernel wrappers counted -> (run's result,
+    {wrapper: calls})."""
     calls = {}
     mp = pytest.MonkeyPatch()
     for mod, name in WRAPPERS:
@@ -106,10 +106,18 @@ def encode_port(cfg, frames):
             return _fn(*a, **k)
         mp.setattr(mod, name, counted)
     try:
-        enc = Encoder(cfg, device="cpu")
-        got = encode(enc, FramePlanes, frames)
+        return run(), calls
     finally:
         mp.undo()
+
+
+def encode_port(cfg, frames):
+    """The port's encode on the CPU, counting its kernel wrappers' calls
+    -> (encoder, outputs, {wrapper: calls})."""
+    def run():
+        enc = Encoder(cfg, device="cpu")
+        return enc, encode(enc, FramePlanes, frames)
+    (enc, got), calls = counted_calls(run)
     return enc, got, calls
 
 

@@ -113,7 +113,7 @@ def psnr(a: np.ndarray, b: np.ndarray, bitdepth: int = 8) -> float:
     return 10 * np.log10(mx * mx / max(mse, 1e-12))
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="uvg266-gpu")
     p.add_argument("-i", "--input", required=True)
     p.add_argument("--input-res", default=None,
@@ -227,38 +227,15 @@ def main(argv=None) -> int:
     p.add_argument("--threads", type=int, default=1,
                    help="host frame-pipeline width for all-intra encodes "
                         "(the OWF analogue; native phases release the GIL)")
-    args = p.parse_args(argv)
+    return p
 
-    if args.scaling_list == "custom" and not args.cqmfile:
-        p.error("--scaling-list=custom does not work without "
-                "--cqmfile=<FILE>")
-    if args.scaling_list == "custom":
-        from ..ops.scaling_lists import ScalingLists
-        try:
-            ScalingLists.from_file(args.cqmfile)
-        except (OSError, ValueError) as e:
-            p.error(f"--cqmfile: {e}")
 
-    is_y4m = args.input.endswith(".y4m")
-    if is_y4m:
-        with open(args.input, "rb") as f:
-            w, h, y4m_bd = parse_y4m_header(f)
-        args.input_bitdepth = y4m_bd
-    else:
-        if not args.input_res:
-            p.error("--input-res is required for raw YUV input")
-        try:
-            w, h = (int(t) for t in args.input_res.split("x"))
-        except ValueError:
-            p.error(f"--input-res must be WxH, got '{args.input_res}'")
-    try:
-        db_beta, db_tc = (int(t) for t in args.deblock.split(":"))
-    except ValueError:
-        p.error(f"--deblock must be BETA:TC, got '{args.deblock}'")
+def build_config(args: argparse.Namespace, w: int, h: int) -> Config:
+    """The Config the CLI encodes a w x h input with: the preset's tools
+    (filtered to implemented Config fields), then the explicit flags."""
+    db_beta, db_tc = (int(t) for t in args.deblock.split(":"))
     all_intra = args.period == 1
     ra = args.gop == "ra8" and not all_intra
-    # preset baseline (filtered to implemented Config fields), then
-    # explicit tool flags override (cfg.py PRESETS; uvg266 --preset)
     kw = {}
     if args.preset:
         import dataclasses
@@ -348,12 +325,55 @@ def main(argv=None) -> int:
                  cqmfile=args.cqmfile,
                  **kw)
     if args.tiles:
-        try:
-            tc, tr = (int(t) for t in args.tiles.split("x"))
-        except ValueError:
-            p.error(f"--tiles must be CxR, got '{args.tiles}'")
+        tc, tr = (int(t) for t in args.tiles.split("x"))
         cfg.tiles_width_count = tc
         cfg.tiles_height_count = tr
+    return cfg
+
+
+def cli_config(flags: list, w: int, h: int) -> Config:
+    """The Config ``uvg266-gpu <flags>`` encodes a w x h input with
+    (flags without the input and output)."""
+    args = _parser().parse_args(["-i", "in.yuv", "-o", "out.vvc", *flags])
+    return build_config(args, w, h)
+
+
+def main(argv=None) -> int:
+    p = _parser()
+    args = p.parse_args(argv)
+    if args.scaling_list == "custom" and not args.cqmfile:
+        p.error("--scaling-list=custom does not work without "
+                "--cqmfile=<FILE>")
+    if args.scaling_list == "custom":
+        from ..ops.scaling_lists import ScalingLists
+        try:
+            ScalingLists.from_file(args.cqmfile)
+        except (OSError, ValueError) as e:
+            p.error(f"--cqmfile: {e}")
+
+    is_y4m = args.input.endswith(".y4m")
+    if is_y4m:
+        with open(args.input, "rb") as f:
+            w, h, y4m_bd = parse_y4m_header(f)
+        args.input_bitdepth = y4m_bd
+    else:
+        if not args.input_res:
+            p.error("--input-res is required for raw YUV input")
+        try:
+            w, h = (int(t) for t in args.input_res.split("x"))
+        except ValueError:
+            p.error(f"--input-res must be WxH, got '{args.input_res}'")
+    try:
+        _beta, _tc = (int(t) for t in args.deblock.split(":"))
+    except ValueError:
+        p.error(f"--deblock must be BETA:TC, got '{args.deblock}'")
+    if args.tiles:
+        try:
+            _cols, _rows = (int(t) for t in args.tiles.split("x"))
+        except ValueError:
+            p.error(f"--tiles must be CxR, got '{args.tiles}'")
+    cfg = build_config(args, w, h)
+    all_intra = args.period == 1
     enc = Encoder(cfg, device=args.device)
     enc.slice_enc.open_loop = not args.closed_loop
 
