@@ -161,7 +161,8 @@ Phases, one line each (or a few), any failure exits non-zero:
      output file equals the port Encoder's AUs on the card, and decodes
      through the port's oracle (ref_decoder) with every checksum right;
   9d. graft_entry.entry() on the card equal to its plain form (device
-     cpu), tolerance 0, and graft_entry.dryrun_multichip(8) on the card;
+     cpu), tolerance 0, and graft_entry.dryrun_multichip(8, device=cuda)
+     (every shard batched on the card);
  10. 192x128 clips encoded on the card (all-intra, LD, rdoq LD, dense RA,
      MIP, MTS, 10-bit LD, slow-tools RA, rough) decode through the port's oracle
      decoder, with their references, to the encoder's reconstruction;
@@ -210,6 +211,27 @@ Phases, one line each (or a few), any failure exits non-zero:
      against the fixture (a host difference between machines told apart
      from a kernel fault). Phases 6b-7c time one encode under the
      profiler, which gives both the wall and the busy share;
+ 14. (run before phase 13) the meshes with one launch set a shard
+     (parallel.mesh, devices=[...]), first on four streams of card 0
+     (["cuda:0"] * 4), then spread over the first 4 (or 2) cards where the
+     machine has them (it prints torch.cuda.device_count()), every frame
+     byte-identical to the plain Encoder's on card 0: 14a MeshEncoder on a
+     (gop 1, tile 4) mesh, phase 12's all-intra QP22 at 1920x1080 with 2x2
+     tiles and wpp off (K1-K4 once per class and tile shard); 14b
+     MeshGopEncoder, closed-GOP runs of 2 frames, each run a launch set on
+     its card: phase 12's LD QP22 (wpp off) over four runs of distinct
+     frames, the Config default (rdoq on: K8 on each run's card; two runs)
+     and the 10-bit LD (K9a, K9b, K6 and their shared-memory opt-ins on
+     each card; four runs), each run of these two on phase 12's two frames
+     and held to its fixture too; every step batched, no fallback, the
+     launches those of the runs' own encodes; each layout's wall fps
+     beside the plain Encoder's, each card's busy share and peak memory,
+     the launches by card; 14c the (gop 4, tile 1) mesh batched on card 0
+     at 3840x2160 10 bits, 4 frames in one search (K2's output 2.22e9
+     elements, past 2^31), its frames equal to the plain Encoder's, each
+     wrapper's largest element offset beside 2^31.
+     `python3 chip_smoke.py --mesh-cards` runs phases 1, 2 and 14 alone
+     (for a machine with several cards);
  13. a JSON line with each kernel's numbers (at_1920x1080: phase 12's),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -237,6 +259,9 @@ TOOL_FRAMES = 3                    # the MIP and MTS paths (Python finalize)
 LD10_FRAMES = 5                    # the 10-bit LD path: IDR + 4 P/B
 RDOQ_FRAMES = 5                    # the rdoq-on LD path: IDR + 4 P/B
 ROUGH_FRAMES = 3                   # the rough all-intra path
+# phase 14: the 1080p tiled all-intra frames of the (gop 1, tile 4) mesh,
+# and each of the gop mesh's four runs
+MESH14_AI, MESH14_LD = 1, 2
 # phase 11a: each preset's LD frames (slower..placebo run the Python
 # finalize with every intra tool: 2 frames)
 SLOW_PRESETS = ("slower", "veryslow", "placebo")
@@ -1197,6 +1222,282 @@ def busy_share(torch, run, every=False):
             f"profiled wall ({busy_ms / (pwall * 1e3):.4f} busy share); "
             + "; ".join(f"{k} {v:.3f} ms" + (f" x{calls[k]}" if every else "")
                         for k, v in top))
+
+
+def mesh_cards(torch, kernels):
+    """Phase 14: the meshes with one launch set a shard, on four streams of
+    card 0 and then over the first 4 (or 2) cards where the machine has
+    them, every frame held to the plain Encoder's on card 0 (and to
+    phase 12's fixture where a run encodes phase 12's frames); then the
+    batched (gop 4, tile 1) mesh on a 3840x2160 batch of 4. Returns
+    ({path: launches}, comparisons); fails on any difference."""
+    from uvg266_tpu_torch.control.encoder import Encoder, FramePlanes
+    from uvg266_tpu_torch.ops import intra_batch as ib
+    from uvg266_tpu_torch.ops import rd_cost as rc
+    from uvg266_tpu_torch.parallel import (MeshEncoder, MeshGopEncoder,
+                                           build_gop_mesh, build_mesh)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           CTC_FIXTURE)) as fh:
+        fixture = json.load(fh)["encodes"]
+    t14 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    print(f"phase 14 cards: torch.cuda.device_count() = {n_cards}", flush=True)
+    card0 = torch.device("cuda", 0)
+    n_spread = 4 if n_cards >= 4 else 2
+    layouts = [("4 streams of card 0", ["cuda:0"] * 4)]
+    if n_cards >= 2:
+        layouts.append((f"{n_spread} cards",
+                        [f"cuda:{i % n_spread}" for i in range(4)]))
+    else:
+        print("phase 14: this machine has one card: the spread over several "
+              "cards is not run here", flush=True)
+    counts, n_checks = {}, [0]
+
+    def expect(path, launches, want):
+        for name in REPLACES:
+            if launches.get(name, 0) != want.get(name, 0):
+                fail(f"{path} launched {name} {launches.get(name, 0)} "
+                     f"times, expected {want.get(name, 0)}")
+        counts[path] = launches
+
+    def same(what, a, b):
+        n_checks[0] += 1
+        if a != b:
+            fail(f"{what}: differs")
+
+    def same_frames(what, got, want):
+        if len(got) != len(want):
+            fail(f"{what}: {len(got)} frames against {len(want)}")
+        for i, ((au_m, rec_m), (au_p, rec_p)) in enumerate(zip(got, want)):
+            same(f"{what} frame {i} AU", au_m, au_p)
+            for pl in ("y", "u", "v"):
+                same(f"{what} frame {i} recon {pl}",
+                     np.asarray(getattr(rec_m, pl)).tobytes(),
+                     np.asarray(getattr(rec_p, pl)).tobytes())
+
+    def same_as_fixture(what, label, outs, cfg):
+        want = fixture[label]["port"]
+        got = frame_digests(outs, cfg)
+        if len(got) > len(want):
+            fail(f"{what}: {len(got)} frames, the fixture holds {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            for key in ("type", "au", "au_bytes", "recon", "rec_out"):
+                same(f"{what} frame {i} {key} against the fixture", a[key],
+                     b[key])
+
+    def sync_all():
+        for i in range(n_cards):
+            torch.cuda.synchronize(i)
+
+    def per_card():
+        return {d: {k: v for k, v in c.items() if v}
+                for d, c in sorted(kernels.LAUNCHES_BY_DEVICE.items())}
+
+    def profiled_by_card(run):
+        """(run's result, profiled wall s, {card: device busy ms}, {card:
+        peak max_memory_allocated B}) of one run under torch.profiler."""
+        for i in range(n_cards):
+            torch.cuda.reset_peak_memory_stats(i)
+        prof_act = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=prof_act) as prof:
+            t0 = time.perf_counter()
+            out = run()
+            sync_all()
+            pwall = time.perf_counter() - t0
+        busy = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                busy[e.device_index] = busy.get(e.device_index, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
+        peak = {i: torch.cuda.max_memory_allocated(i) for i in range(n_cards)
+                if torch.cuda.max_memory_allocated(i)}
+        return out, pwall, busy, peak
+
+    def card_line(busy, peak, pwall):
+        return "; ".join(
+            f"cuda:{i} busy {busy.get(i, 0.0):.3f} ms "
+            f"({busy.get(i, 0.0) / (pwall * 1e3):.4f} busy share), peak "
+            f"{peak.get(i, 0)} B" for i in sorted(set(busy) | set(peak)))
+
+    def plain_card0(pcfg, pclip):
+        """The plain Encoder's frames on card 0, their launches, and its
+        wall s."""
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = encode(Encoder(pcfg, device=card0), FramePlanes, pclip)
+        torch.cuda.synchronize(card0)
+        return ([o[:2] for o in outs], dict(kernels.LAUNCHES),
+                time.perf_counter() - t0, outs)
+
+    # 14a: MeshEncoder, (gop 1, tile 4): phase 12's all-intra QP22 with 2x2
+    # tiles and wpp off, one launch set a tile
+    acfg = dataclasses.replace(ctc_config("1080p allintra q22"),
+                               tiles_width_count=2, tiles_height_count=2,
+                               wpp=False)
+    aclip = [FramePlanes(*f) for f in ctc_clip(1920, 1080, MESH14_AI)]
+    a_ref, _l, a_wall, _o = plain_card0(acfg, aclip)
+    for lab, devs in layouts:
+        menc = MeshEncoder(acfg, build_mesh(4, n_gop=1, devices=devs))
+        kernels.reset_launches()
+        got, pwall, busy, peak = profiled_by_card(lambda: menc.encode(aclip))
+        by = per_card()
+        want = dict.fromkeys(INTRA_KERNELS[1:], 0)
+        for classes, _d in menc._tile_plan()[0]:
+            for c in classes:
+                k1 = "refs_blocks_grid" if c[2] is not None else "refs_blocks"
+                want[k1] = want.get(k1, 0) + len(aclip)
+                for k in INTRA_KERNELS[1:]:
+                    want[k] += len(aclip)
+        expect(f"sharded all-intra, {lab}", dict(kernels.LAUNCHES), want)
+        if sorted(by) != sorted(set(devs)):
+            fail(f"14a {lab}: launches on {sorted(by)}, mesh on {devs}")
+        same_frames(f"14a {lab}", got, a_ref)
+        print(f"phase 14a MeshEncoder (gop 1, tile 4) on {lab}: "
+              f"{len(aclip)} frames 1920x1080 QP22 all-intra, 2x2 tiles, in "
+              f"{pwall:.3f} s = {len(aclip) / pwall:.3f} fps wall (profiled;"
+              f" the plain Encoder {len(aclip) / a_wall:.3f} fps), "
+              f"{sum(len(a) for a, _r in got)} bytes equal the plain "
+              f"Encoder's on cuda:0, frame RD "
+              + ", ".join(f"{v:.1f}" for v in menc.frame_rd_stats)
+              + f"; {card_line(busy, peak, pwall)}; launches by card "
+              + json.dumps(by), flush=True)
+
+    # 14b: MeshGopEncoder, closed-GOP runs of 2 frames, one launch set a
+    # run on its card, each run held to a plain Encoder's on card 0: phase
+    # 12's LD QP22 (wpp off) over four runs of distinct frames; the Config
+    # default (rdoq on: K8 on each run's card; two runs, its Python
+    # finalize takes 5-7 s a 1080p frame) and the 10-bit LD (K9a, K9b, K6
+    # on each run's card; four runs), each run on phase 12's two frames,
+    # held to the fixture as well
+    for label, gcfg, G, fixture_label in (
+            ("LD QP22", dataclasses.replace(
+                ctc_config("1080p lowdelay q22"), wpp=False), 4, None),
+            ("default QP27", ctc_config("1080p default q27"), 2,
+             "1080p default q27"),
+            ("10-bit LD QP27", ctc_config("1080p ld10 q27"), 4,
+             "1080p ld10 q27")):
+        L = MESH14_LD
+        bd = gcfg.input_bitdepth
+        if fixture_label is None:
+            clip = ctc_clip(1920, 1080, G * L, bd)
+            runs = [clip[g * L:(g + 1) * L] for g in range(G)]
+            refs = [plain_card0(gcfg, [FramePlanes(*f) for f in r])
+                    for r in runs]
+        else:
+            base = ctc_clip(1920, 1080, L, bd)
+            runs = [[tuple(pl.copy() for pl in f) for f in base]
+                    for _g in range(G)]
+            refs = [plain_card0(gcfg, [FramePlanes(*f) for f in base])] * G
+            same_as_fixture(f"14b {label} plain", fixture_label,
+                            [(o[0], o[1], int(o[2].slicetype))
+                             for o in refs[0][3]], gcfg)
+        want = {k: sum(r[1].get(k, 0) for r in refs) for k in REPLACES}
+        p_wall = sum(r[2] for r in refs)
+        gclip = [FramePlanes(*f) for r in runs for f in r]
+        for lab, devs in layouts:
+            genc = MeshGopEncoder(gcfg, build_gop_mesh(G, devices=devs[:G]))
+            kernels.reset_launches()
+            gres, pwall, busy, peak = profiled_by_card(
+                lambda: genc.encode(gclip))
+            by = per_card()
+            if genc.disp.n_fallback or not genc.disp.n_batched:
+                fail(f"14b {label} {lab}: {genc.disp.n_batched} batched "
+                     f"steps, {genc.disp.n_fallback} fallbacks")
+            # a launch set a run: the runs' launches are their own encodes'
+            expect(f"sharded gop {label}, {lab}", dict(kernels.LAUNCHES), want)
+            if sorted(by) != sorted(set(devs[:G])):
+                fail(f"14b {label} {lab}: launches on {sorted(by)}")
+            for g in range(G):
+                same_frames(f"14b {label} {lab} run {g}",
+                            [o[:2] for o in gres[g]], refs[g][0])
+            types = "".join(SLICE[o[2].slicetype] for o in gres[0])
+            print(f"phase 14b MeshGopEncoder {label} on {lab}: {G} runs of "
+                  f"{L} frames 1920x1080 ({types}) in {pwall:.3f} s = "
+                  f"{G * L / pwall:.3f} fps wall (profiled; the plain "
+                  f"Encoders one after the other {G * L / p_wall:.3f} fps), "
+                  f"{genc.disp.n_batched} batched steps, 0 fallbacks, "
+                  f"{sum(len(o[0]) for r in gres for o in r)} bytes equal "
+                  "the plain Encoders' on cuda:0"
+                  + ("" if fixture_label is None else " and the fixture's")
+                  + f"; {card_line(busy, peak, pwall)}; launches by card "
+                  + json.dumps(by), flush=True)
+            del gres, genc
+
+    # 14c: the (gop 4, tile 1) mesh batched on card 0 at 3840x2160 10 bits:
+    # one search of 4 frames, K2's output past 2^31 elements; each
+    # wrapper's largest element offset recorded on the way
+    ucfg = ctc_config("2160p ai10 q22")
+    uclip = [FramePlanes(*f) for f in ctc_clip(3840, 2160, 4, 10)]
+    u_ref, _l, u_wall, _o = plain_card0(ucfg, uclip)
+    uenc = MeshEncoder(ucfg, build_mesh(4, n_gop=4, device=card0))
+    largest = {}
+    wrapped = {"refs_blocks_grid": ib, "predict67": ib, "satd67": ib,
+               "rd_cost": rc}
+    plain_fn = {k: getattr(m, k) for k, m in wrapped.items()}
+
+    def recording(name, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            ts = [t for t in (*a, *k.values(),
+                              *(out if isinstance(out, tuple) else (out,)))
+                  if isinstance(t, torch.Tensor)]
+            largest[name] = max(largest.get(name, 0),
+                                max(t.numel() for t in ts) - 1)
+            return out
+        return call
+    for name, mod in wrapped.items():
+        setattr(mod, name, recording(name, plain_fn[name]))
+    kernels.reset_launches()
+    try:
+        ugot, pwall, busy, peak = profiled_by_card(lambda: uenc.encode(uclip))
+    finally:
+        for name, mod in wrapped.items():
+            setattr(mod, name, plain_fn[name])
+    if largest.get("predict67", 0) < 2 ** 31:
+        fail("14c: the batch's K2 output does not pass 2^31 elements")
+    n_cls = sum(1 for cl in uenc._search_classes()[1] if cl["positions"])
+    expect("batched 2160p gop 4", dict(kernels.LAUNCHES),
+           dict.fromkeys(INTRA_KERNELS, n_cls))
+    same_frames("14c 2160p", ugot, u_ref)
+    print(f"phase 14c MeshEncoder (gop 4, tile 1) batched on cuda:0: 4 frames"
+          f" 3840x2160 10-bit QP22 in one search ({n_cls} classes, one "
+          f"launch of K1-K4 a class) in {pwall:.3f} s = {4 / pwall:.3f} fps "
+          f"wall (profiled; the plain Encoder {4 / u_wall:.3f} fps), "
+          f"{sum(len(a) for a, _r in ugot)} bytes equal the plain Encoder's;"
+          f" {card_line(busy, peak, pwall)}; largest element offset each "
+          "wrapper's tensors reach, against 2^31 = 2147483648: "
+          + ", ".join(f"{k} {v} ({v / 2 ** 31:.3f})"
+                      for k, v in largest.items()), flush=True)
+    del ugot, u_ref, uenc
+    torch.cuda.empty_cache()
+    print(f"phase 14 meshes over several cards: {n_checks[0]} comparisons, "
+          f"all equal, {len(layouts)} layout(s), {n_cards} card(s); took "
+          f"{time.perf_counter() - t14:.3f} s", flush=True)
+    return counts, n_checks[0]
+
+
+def mesh_cards_main() -> int:
+    """``python3 chip_smoke.py --mesh-cards``: the card line, the build,
+    then phase 14 alone (on a machine with several cards, the spread over
+    them and what it is compared with, and no other phase)."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: torch.cuda.is_available() is false")
+    import uvg266_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    from uvg266_tpu_torch import kernels
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    kernels.build([n for n in kernels.SIGNATURES
+                   if kernels.source_of(n) not in LATE_SOURCES])
+    print(f"phase 2 build: {time.perf_counter() - t0:.3f} s wall", flush=True)
+    got, n = mesh_cards(torch, kernels)
+    print(json.dumps({"mesh_cards": {"comparisons": n, "launches": got}}),
+          flush=True)
+    return 0
 
 
 def main() -> int:
@@ -2695,9 +2996,10 @@ def main() -> int:
     same("rd_cost", "entry() best", best_c.cpu(), best_p)
     same("rd_cost", "entry() costs", cost_c.cpu(), cost_p)
     t0 = time.perf_counter()
-    graft_entry.dryrun_multichip(8)
+    graft_entry.dryrun_multichip(8, device=dev)
     print(f"phase 9d entry points: entry() equals its plain form "
-          f"({best_c.numel()} blocks), dryrun_multichip(8) on the card in "
+          f"({best_c.numel()} blocks), dryrun_multichip(8, device=cuda) on "
+          "the card in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     print(f"phase 9 mesh, CLI and entry points: {checks - n0} comparisons, "
           "all equal", flush=True)
@@ -3356,6 +3658,12 @@ def main() -> int:
           f" equal the fixture on every frame; phase 12 took "
           f"{time.perf_counter() - t12:.3f} s", flush=True)
 
+    # --- 14. the meshes over several cards --------------------------------
+    stamp("14")
+    got14, n14 = mesh_cards(torch, kernels)
+    checks += n14
+    mesh_counts.update(got14)
+
     # --- 13. results --------------------------------------------------------
     stamp("13")
     rows = []
@@ -3399,4 +3707,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_cards_main() if sys.argv[1:] == ["--mesh-cards"]
+             else main())

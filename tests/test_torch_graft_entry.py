@@ -51,3 +51,9 @@ def test_entry_defaults_to_the_card():
 
 def test_dryrun_multichip_on_cpu():
     graft_entry.dryrun_multichip(8, device="cpu")
+
+
+def test_dryrun_multichip_sharded_on_cpu():
+    """One launch set a shard, each on its listed device (the 8 shards and
+    the 4 closed-GOP runs on CPU devices)."""
+    graft_entry.dryrun_multichip(8, devices=["cpu"] * 8)

@@ -87,8 +87,9 @@ def test_load_builds_and_loads_once_across_threads(stub_nvcc, monkeypatch):
 
 
 def test_launch_counts_lose_no_update_across_threads(monkeypatch):
-    """Launches counted from many threads at once (a shortened switch
-    interval makes a lost read-modify-write likely without the lock)."""
+    """Launches counted from many threads at once, in all and by card (a
+    shortened switch interval makes a lost read-modify-write likely
+    without the lock)."""
     n_threads, n_each = 16, 2000
     monkeypatch.setattr(kernels, "_load",
                         lambda name: (lambda *a: 0, lambda rc: b""))
@@ -96,6 +97,7 @@ def test_launch_counts_lose_no_update_across_threads(monkeypatch):
     monkeypatch.setattr(kernels.torch.cuda, "current_stream",
                         lambda device=None: stream)
     before = kernels.LAUNCHES["satd67"]
+    before_cpu = kernels.LAUNCHES_BY_DEVICE.get("cpu", {}).get("satd67", 0)
     start = threading.Barrier(n_threads)
 
     def work():
@@ -114,4 +116,8 @@ def test_launch_counts_lose_no_update_across_threads(monkeypatch):
     finally:
         sys.setswitchinterval(old)
     assert kernels.LAUNCHES["satd67"] - before == n_threads * n_each
+    # and by card, under the same lock
+    assert kernels.LAUNCHES_BY_DEVICE["cpu"]["satd67"] - before_cpu == \
+        n_threads * n_each
     kernels.LAUNCHES["satd67"] = before
+    kernels.LAUNCHES_BY_DEVICE["cpu"]["satd67"] = before_cpu

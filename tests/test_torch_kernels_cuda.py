@@ -293,7 +293,7 @@ def test_redesigned_k9_equal_plain(card, w, h):
     rng = np.random.default_rng(w * 100 + h)
     r = 16
     H, W = 2 * h + 40, 3 * w + 40
-    pen, fpen = tb.me_penalties(57.9, r, "cuda")
+    pen, fpen = tb.me_penalties(57.9, r, str(card))
     n = {"fullpel_search": 0, "frac_search": 0}
     before = dict(kernels.LAUNCHES)
     for bd in (8, 10, 12):
@@ -1057,3 +1057,98 @@ def test_gop_mesh_on_card(card):
         ref = [o[0] for f in frames[3 * g:3 * g + 3] for o in enc.feed(f)]
         ref += [o[0] for o in enc.flush()]
         assert [o[0] for o in res[g]] == ref
+
+
+def _cards(n):
+    """The first n cards, or a skip naming the machine's count."""
+    have = torch.cuda.device_count()
+    if have < n:
+        pytest.skip(f"needs {n} cards: this machine has {have}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _spread(how):
+    """Four shards' devices: four streams of card 0, or the machine's
+    cards in turn (2 or 4; skips with one)."""
+    if how == "card 0":
+        return ["cuda:0"] * 4
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    return [str(d) for d in _cards(n)] * (4 // n)
+
+
+@pytest.mark.parametrize("how", ["card 0", "cards"])
+@pytest.mark.parametrize("tools", [{}, {"mip": True}], ids=["plain", "mip"])
+def test_sharded_mesh_encoder_on_cards(card, tools, how):
+    """MeshEncoder on a (2, 2) mesh, one launch set a shard (four streams
+    of card 0, or spread over the cards): AUs and recons equal the plain
+    Encoder's on card 0; K1-K4 launch on every card of the mesh."""
+    from uvg266_tpu_torch.cfg import Config
+    from uvg266_tpu_torch.control.encoder import Encoder, FramePlanes
+    from uvg266_tpu_torch.parallel import MeshEncoder, build_mesh
+    devs = _spread(how)
+    kw = dict(width=256, height=128, qp=32, gop_len=0, intra_period=1,
+              tiles_width_count=2, tiles_height_count=1, wpp=False, **tools)
+    frames = [FramePlanes(*f) for f in _mesh_planes(4, 128, 256, 6)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = MeshEncoder(Config(**kw), build_mesh(4, devices=devs)).encode(
+        frames)
+    by = {d: dict(c) for d, c in kernels.LAUNCHES_BY_DEVICE.items()}
+    assert sorted(by) == sorted(set(devs))
+    assert all(c[k] > 0 for c in by.values()
+               for k in ("refs_blocks_grid", "predict67", "satd67",
+                         "rd_cost"))
+    enc = Encoder(Config(**kw), device="cuda:0")
+    ref = [o[:2] for f in frames for o in enc.feed(f)]
+    ref += [o[:2] for o in enc.flush()]
+    assert len(got) == len(ref) == 4
+    for (au_m, rec_m), (au_p, rec_p) in zip(got, ref):
+        assert au_m == au_p
+        for p in ("y", "u", "v"):
+            assert np.array_equal(getattr(rec_m, p), getattr(rec_p, p))
+
+
+@pytest.mark.parametrize("how", ["card 0", "cards"])
+def test_sharded_gop_mesh_on_cards(card, how):
+    """MeshGopEncoder with four LD runs, one launch set a run (four streams
+    of card 0, or spread over the cards), rdoq on (K8 on each run's card):
+    every step batched, no fallback, each run's AUs equal a plain
+    Encoder's on card 0."""
+    from uvg266_tpu_torch.cfg import Config
+    from uvg266_tpu_torch.control.encoder import Encoder, FramePlanes
+    from uvg266_tpu_torch.parallel import MeshGopEncoder, build_gop_mesh
+    devs = _spread(how)
+    kw = dict(width=128, height=80, qp=30, gop_len=4, gop_lowdelay=True,
+              intra_period=64, ref_frames=1, rdoq_enable=True, wpp=False)
+    frames = [FramePlanes(*f) for f in _mesh_planes(12, 80, 128, 7)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    m = MeshGopEncoder(Config(**kw), build_gop_mesh(4, devices=devs))
+    res = m.encode(frames)
+    by = {d: dict(c) for d, c in kernels.LAUNCHES_BY_DEVICE.items()}
+    assert m.disp.n_batched == 3 and m.disp.n_fallback == 0
+    assert [str(e.slice_enc.device) for e in m.encs] == devs
+    assert sorted(by) == sorted(set(devs))
+    assert all(c["pseudo_recon"] > 0 and c["leaf_qpel"] > 0
+               for c in by.values())
+    for g in range(4):
+        enc = Encoder(Config(**kw), device="cuda:0")
+        ref = [o[0] for f in frames[3 * g:3 * g + 3] for o in enc.feed(f)]
+        ref += [o[0] for o in enc.flush()]
+        assert [o[0] for o in res[g]] == ref
+
+
+def test_shared_memory_grants_on_second_card(card):
+    """K9a, both K9b forms (every (w, h) in {4..64}^2) and K7 (r = 16, 5,
+    0, 24) on card 1 from a thread whose current card is 0: launches above
+    48 KB of dynamic shared memory need the opt-in on card 1 itself (the
+    grants are kept per card), and kernels.launch makes card 1 current for
+    each call. Every output equals the plain version's."""
+    c1 = _cards(2)[1]
+    assert torch.cuda.current_device() == 0
+    for w in (4, 8, 16, 32, 64):
+        for h in (4, 8, 16, 32, 64):
+            test_redesigned_k9_equal_plain(c1, w, h)
+    for r in (16, 5, 0, 24):
+        test_redesigned_k7_equal_plain(c1, r)
+    assert set(kernels.LAUNCHES_BY_DEVICE) >= {"cuda:1"}

@@ -1,8 +1,10 @@
-"""The port's mesh encoders (uvg266_tpu_torch.parallel) on the CPU.
+"""The port's mesh encoders (uvg266_tpu_torch.parallel) on the CPU, in the
+batched layout (device="cpu"; tests/test_torch_mesh_sharded.py holds the
+sharded one).
 
-On one card the mesh is a logical grid: the 'gop' axis batches frames (or
-closed-GOP runs) into one launch per kernel; the 'tile' axis must equal the
-config's tile count. Finalize and entropy run per frame on the host, so
+In the batched layout the 'gop' axis batches frames (or closed-GOP runs)
+into one launch per kernel; the 'tile' axis must equal the config's tile
+count. Finalize and entropy run per frame on the host, so
 each mesh encode must be byte-identical to the port's plain Encoder with
 the same Config (the port twins of tests/test_multichip.py, at its sizes:
 256x128 x 3 frames; 128x80 x G*L). One case is also held to the JAX
@@ -122,13 +124,14 @@ def _mesh_clip(w, h, n, seed=2):
     return frames
 
 
-def _check_gop_mesh(cfg_kw, G, L, w=128, h=80):
+def _check_gop_mesh(cfg_kw, G, L, w=128, h=80, devices=None):
     """MeshGopEncoder output must be byte-identical to encoding each
     closed-GOP run with a plain Encoder, every step through the batched
-    group dispatch."""
+    group dispatch (on ``devices``, one launch set a run, if given)."""
     frames = _mesh_clip(w, h, G * L)
     menc = MeshGopEncoder(Config(width=w, height=h, **cfg_kw),
-                          build_gop_mesh(G, device="cpu"))
+                          build_gop_mesh(G, device=None if devices else "cpu",
+                                         devices=devices))
     res = menc.encode(frames)
     assert len(res) == G
     for g in range(G):
@@ -144,6 +147,7 @@ def _check_gop_mesh(cfg_kw, G, L, w=128, h=80):
     # one batched call a frame of each run: the IDR's search, then each
     # P/B frame's intra screen
     assert menc.disp.n_batched == L and menc.disp.n_fallback == 0
+    return menc
 
 
 def test_gop_mesh_lowdelay_byte_identical():
@@ -286,21 +290,40 @@ def test_group_dispatch_error_reaches_every_slot(monkeypatch):
 
 
 def test_meshes_default_to_the_card():
-    """build_mesh / build_gop_mesh default to the CUDA device and raise
-    without one; the mesh shape rule is the reference's."""
-    if torch.cuda.is_available():
-        assert build_mesh(8).device.type == "cuda"
-    else:
+    """build_mesh / build_gop_mesh with no device take the first n cards,
+    one launch set a shard, and raise, naming both counts, on a machine
+    with fewer (never folding the shards onto one card); device= puts
+    every shard on that device in one launch set, devices= each shard on
+    its listed device; the mesh shape rule is the reference's."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for n, build in ((8, build_mesh), (2, build_gop_mesh)):
+        if have >= n:
+            m = build(n)
+            assert not m.batched and [str(d) for d in m.devices.flat] == [
+                f"cuda:{i}" for i in range(n)]
+        else:
+            with pytest.raises(RuntimeError, match=f"first {n} CUDA "
+                               f"devices and this machine has {have}"):
+                build(n)
+    if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            build_mesh(8)
-        with pytest.raises(RuntimeError, match="CUDA"):
-            build_gop_mesh(2)
-    assert build_mesh(8, device="cpu").shape == {"gop": 2, "tile": 4}
+            build_mesh(8, device="cuda")
+    m = build_mesh(8, device="cpu")
+    assert m.shape == {"gop": 2, "tile": 4} and m.batched
+    assert m.devices.shape == (2, 4) and m.device == torch.device("cpu")
+    m = build_mesh(8, devices=["cpu"] * 8)
+    assert m.devices.shape == (2, 4) and not m.batched
+    with pytest.raises(ValueError, match="7 devices"):
+        build_mesh(8, devices=["cpu"] * 7)
+    with pytest.raises(ValueError, match="not both"):
+        build_mesh(8, device="cpu", devices=["cpu"] * 8)
     assert build_mesh(6, device="cpu").shape == {"gop": 2, "tile": 3}
     assert build_mesh(3, device="cpu").shape == {"gop": 1, "tile": 3}
     assert build_mesh(2, device="cpu").shape == {"gop": 1, "tile": 2}
     assert build_mesh(8, n_gop=4, device="cpu").shape == {"gop": 4,
                                                           "tile": 2}
+    g = build_gop_mesh(3, devices=["cpu"] * 3)
+    assert g.shape == {"gop": 3} and g.devices.shape == (3,)
     assert build_gop_mesh(3, device="cpu").shape == {"gop": 3}
     assert tile_grid_for(4) == (2, 2) and tile_grid_for(6) == (3, 2)
     with pytest.raises(ValueError, match="tile"):

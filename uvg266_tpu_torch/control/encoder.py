@@ -1308,9 +1308,10 @@ def _fetch_async(t: torch.Tensor):
     if t.device.type == "cpu":
         return t.numpy
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(t.device))
+    with torch.cuda.device(t.device):      # the event lives on t's card
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(t.device))
 
     def fetch():
         done.synchronize()

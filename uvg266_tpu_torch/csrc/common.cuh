@@ -5,6 +5,7 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <mutex>
 
 namespace uvg {
 
@@ -28,6 +29,39 @@ __device__ __forceinline__ int wrap16(int v) {
 }
 
 __device__ __forceinline__ int clip16(int v) { return clampi(v, -32768, 32767); }
+
+// The dynamic shared memory a kernel may take, opted in per card (the
+// default limit is 48 KB less the kernel's static shared memory):
+// cudaFuncSetAttribute acts on the calling thread's current device alone, so
+// each card gets its own grant, at its first launch there and whenever a
+// launch asks for more. One object per kernel instance (a static at its
+// launch site); the mutex serves host threads that launch on several cards
+// at once. No attribute call lands inside a CUDA graph's capture after a
+// card's first launch of the largest size.
+class SmemGrant {
+ public:
+  template <typename K>
+  cudaError_t ensure(K kern, size_t smem) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> hold(mu_);
+    if (set_[dev] && smem <= granted_[dev]) return cudaSuccess;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    set_[dev] = true;
+    granted_[dev] = smem;
+    return cudaSuccess;
+  }
+
+ private:
+  static constexpr int kMaxDevices = 64;
+  std::mutex mu_;
+  bool set_[kMaxDevices] = {};
+  size_t granted_[kMaxDevices] = {};
+};
 
 inline int grid_for(long long n, int threads, int cap = 132 * 32) {
   long long g = (n + threads - 1) / threads;

@@ -271,17 +271,11 @@ cudaError_t launch(const int* ref, int H, int W, const int* blocks,
   const Geo g = geometry(w, h, N);
   const size_t smem = smem_bytes(g, N);
   auto kern = frac_search_kernel<N, WT, HT>;
-  // above 48 KB by opt-in, raised once per instance to the largest asked
-  // (so that no attribute call lands inside a CUDA graph's capture after
-  // the first launch)
-  static size_t granted = 48 * 1024;
-  if (smem > granted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    granted = smem;
-  }
+  // opted in per card and instance, raised to the largest asked (above
+  // 48 KB: uvg::SmemGrant)
+  static uvg::SmemGrant grant;
+  const cudaError_t e = grant.ensure(kern, smem);
+  if (e != cudaSuccess) return e;
   kern<<<(B + g.NB - 1) / g.NB, g.NB * g.T * g.G, smem, st>>>(
       ref, H, W, blocks, xs, ys, mvx, mvy, B, w, h, bd, fpen, best, preds,
       costs, winner);

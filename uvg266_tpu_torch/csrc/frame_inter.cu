@@ -213,17 +213,11 @@ cudaError_t launch_tiles(const int* src, const int* ref_pad, int H, int W,
   const TileGeo g = tile_geo<PX, PY, NS>(r);
   const size_t smem = sizeof(unsigned) * static_cast<size_t>(g.total);
   auto kern = tile_ssd_kernel<R_, PX, PY, NS>;
-  // above 48 KB by opt-in, raised once per instance to the largest asked
-  // (so that no attribute call lands inside a CUDA graph's capture after
-  // the first launch)
-  static size_t granted = 48 * 1024;
-  if (smem > granted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    granted = smem;
-  }
+  // opted in per card and instance, raised to the largest asked (above
+  // 48 KB: uvg::SmemGrant)
+  static uvg::SmemGrant grant;
+  const cudaError_t e = grant.ensure(kern, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((W / TILE + PX - 1) / PX, (H / TILE + PY - 1) / PY);
   const int threads = R_ ? (g.tasks + 31) / 32 * 32 : 256;
   kern<<<grid, threads, smem, st>>>(src, ref_pad, H, W, r, ssd);

@@ -412,17 +412,11 @@ cudaError_t launch(const int* ref, int H, int W, const int* blocks,
       static_cast<size_t>(layout(geometry(w, h, r, NB), KS).total);
   if (smem > 232448) return cudaErrorInvalidValue;     // 227 KB a block
   auto kern = fullpel_search_kernel<JC, WT, HT, RT>;
-  // above 48 KB by opt-in, raised once per instance to the largest asked
-  // (so that no attribute call lands inside a CUDA graph's capture after
-  // the first launch)
-  static size_t granted = 48 * 1024;
-  if (smem > granted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    granted = smem;
-  }
+  // opted in per card and instance, raised to the largest asked (above
+  // 48 KB: uvg::SmemGrant)
+  static uvg::SmemGrant grant;
+  const cudaError_t e = grant.ensure(kern, smem);
+  if (e != cudaSuccess) return e;
   kern<<<(B + NB - 1) / NB, threads(), smem, st>>>(
       ref, H, W, blocks, xs, ys, B, w, h, r, NB, KS, pen, mvx, mvy, cost);
   return cudaGetLastError();

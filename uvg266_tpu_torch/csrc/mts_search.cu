@@ -389,9 +389,8 @@ int launch(const void* preds, const void* src, int B, const void* mts_w,
            const TrIdx& idx, float lam, void* tr_out, void* cost_out, void* dc_out,
            cudaStream_t stream) {
   using G = Geo<W, H>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      mts_search_kernel<W, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(G::SMEM));
+  static uvg::SmemGrant grant;     // per card (uvg::SmemGrant)
+  const cudaError_t attr = grant.ensure(mts_search_kernel<W, H>, G::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int grid = (B + G::U - 1) / G::U;
   mts_search_kernel<W, H><<<grid, G::NT, G::SMEM, stream>>>(

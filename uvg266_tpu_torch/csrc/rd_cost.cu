@@ -100,9 +100,8 @@ int launch(const void* preds, const void* src, const void* satds, int B, int M,
            const void* mode_bits, const uvg::RdTail& p, float lam, void* best,
            void* rd, void* satd_best, cudaStream_t stream) {
   using G = uvg::RdGeo<W, H>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      rd_cost_kernel<W, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(G::SMEM));
+  static uvg::SmemGrant grant;     // per card (uvg::SmemGrant)
+  const cudaError_t attr = grant.ensure(rd_cost_kernel<W, H>, G::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int grid = (B + G::U - 1) / G::U;
   rd_cost_kernel<W, H><<<grid, G::NT, G::SMEM, stream>>>(

@@ -65,9 +65,8 @@ int launch(const void* preds, const void* src, const void* extra_bits, int B,
            const void* mat_w, const void* mat_h, const void* wts,
            const uvg::RdTail& p, float lam, void* rd, cudaStream_t stream) {
   using G = uvg::RdGeo<W, H>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      rd_cost_pred_kernel<W, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(G::SMEM));
+  static uvg::SmemGrant grant;     // per card (uvg::SmemGrant)
+  const cudaError_t attr = grant.ensure(rd_cost_pred_kernel<W, H>, G::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int grid = (B + G::U - 1) / G::U;
   rd_cost_pred_kernel<W, H><<<grid, G::NT, G::SMEM, stream>>>(

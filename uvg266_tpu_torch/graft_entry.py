@@ -3,8 +3,10 @@
 The flagship compute path of the encoder is the fused batched intra
 search: reference construction on the card (K12a), all-67-mode prediction
 (K2), SATD (K3) and the transform-domain RD cost (K4), the phase-1 kernel
-chain of the two-phase encoder design. Both entry points run on the card
-unless the caller passes device="cpu" (the kernels' plain versions).
+chain of the two-phase encoder design. entry() runs on the card unless
+the caller passes device="cpu" (the kernels' plain versions);
+dryrun_multichip spreads its mesh over the first n cards unless the
+caller names a device or a list of them.
 """
 from __future__ import annotations
 
@@ -53,26 +55,29 @@ def entry(device=None):
     return search_step, (torch.from_numpy(src).to(dev), xs, ys)
 
 
-def dryrun_multichip(n_devices: int, device=None) -> None:
-    """Encode real frames with the phase-1 search batched over an
-    n-shard ('gop', 'tile') mesh on one card (parallel.mesh).
+def dryrun_multichip(n_devices: int, device=None, devices=None) -> None:
+    """Encode real frames with the phase-1 search over an n-shard ('gop',
+    'tile') mesh (parallel.mesh): with no device over the first n_devices
+    cards, one launch set a shard, as the reference spreads over
+    jax.devices()[:n]; with ``device`` every shard batched on that card;
+    with ``devices`` each shard on its listed device.
 
-    - 'tile' axis: the config's tile grid (one tile a shard); on one card
-      every tile's blocks ride the same launches, and the per-frame RD
-      stat sums all of them.
+    - 'tile' axis: the config's tile grid (one tile a shard); the
+      per-frame RD stat sums every tile's blocks.
     - 'gop' axis: data-parallel over frames (the OWF analogue): that many
-      frames' searches ride one launch per kernel and class.
+      frames' searches a batch.
 
     Finalize and the per-tile CABAC substreams run on the host, and the
     bitstream is asserted byte-identical to the plain Encoder with the
-    same config; then the closed-GOP mesh (RA8 B-pyramid) likewise, run by
-    run."""
+    same config on the mesh's first device; then the closed-GOP mesh (RA8
+    B-pyramid, one run a shard of its first min(n, 4) devices) likewise,
+    run by run."""
     from .cfg import Config
     from .control.encoder import Encoder, FramePlanes
     from .parallel import (MeshEncoder, MeshGopEncoder, build_gop_mesh,
                            build_mesh, tile_grid_for)
 
-    mesh = build_mesh(n_devices, device=device)
+    mesh = build_mesh(n_devices, device=device, devices=devices)
     dev = mesh.device
     n_gop, n_tile = mesh.shape["gop"], mesh.shape["tile"]
     tw, th = tile_grid_for(n_tile)
@@ -108,12 +113,13 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
 
     # --- closed-GOP inter batching (RA8 B-pyramid over a 'gop' mesh) ---
     # Every shard owns an IDR-led run; per-frame GOP QP offsets apply;
-    # the source-only device phase rides one batched launch per kernel for
-    # all runs; host finalize/entropy threads per run. Byte identity with
-    # the plain Encoder is asserted per run.
+    # the source-only device phase of a step rides one step of the group
+    # dispatcher for all runs; host finalize/entropy threads per run. Byte
+    # identity with the plain Encoder is asserted per run.
     G = min(n_devices, 4)
     L = 8
-    gmesh = build_gop_mesh(G, device=dev)
+    gmesh = build_gop_mesh(G, device=device, devices=None if devices is None
+                           else list(devices)[:G])
     gcfg = Config(width=128, height=80, qp=30, gop_len=8,
                   gop_lowdelay=False, bipred=1, intra_period=64,
                   ref_frames=2, sao_type=3, deblock_enable=True,

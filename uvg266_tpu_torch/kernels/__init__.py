@@ -12,13 +12,15 @@ raises when the kernel cannot be built or launched.
 Every C entry takes its tensors as raw device pointers, enqueues its kernel
 on the stream it is given (PyTorch's current stream) without synchronising,
 and returns ``cudaGetLastError()``. ``LAUNCHES`` counts the successful
-launches per kernel, so a run can show that its path went through them.
+launches per kernel (``LAUNCHES_BY_DEVICE`` the same by card), so a run
+can show that its path went through them.
 Building and loading hold one lock, so host threads that first need a
 kernel at the same time (the mesh encoders' runs, the CLI's ``--threads``)
 build each source once.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -103,6 +105,8 @@ SOURCE = {"refs_blocks": "refs_blocks_grid", "fwd_transform": "transform",
           "inv_transform": "transform", "quant_levels": "quant",
           "dequant_levels": "quant"}
 LAUNCHES = dict.fromkeys(SIGNATURES, 0)
+# the same counts by card ('cuda:i')
+LAUNCHES_BY_DEVICE: dict = {}
 _LIBS: dict = {}
 # held while a source is built or a library loaded; the counts have their own
 _LOCK = threading.RLock()
@@ -113,6 +117,7 @@ def reset_launches() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        LAUNCHES_BY_DEVICE.clear()
 
 
 def _nvcc() -> str:
@@ -211,15 +216,23 @@ def _load(name: str):
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Enqueue kernel ``name`` on the current stream of ``device``; raise
-    if the launch was refused. Counts the launch."""
+    """Enqueue kernel ``name`` on the current stream of ``device``, with
+    ``device`` the calling thread's current card for the call (a C entry
+    launches on the current card, and a stream of another card is not
+    its to use); raise if the launch was refused. Counts the launch, in
+    all and on its card."""
     fn, err = _load(name)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, stream)
+    cuda = device.type == "cuda"
+    with torch.cuda.device(device) if cuda else contextlib.nullcontext():
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name}: {err(rc).decode()} (error {rc})")
+    card = f"cuda:{torch.cuda.current_device()}" \
+        if cuda and device.index is None else str(device)
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+        by = LAUNCHES_BY_DEVICE.setdefault(card, dict.fromkeys(SIGNATURES, 0))
+        by[name] += 1
 
 
 def check_batch(name: str, n: int) -> None:

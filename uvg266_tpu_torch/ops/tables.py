@@ -28,11 +28,10 @@ size id, search range, lambda and device.
 """
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
+from .. import device_cache
 from .fast_cost_tables import FAST_COEFF_WTS
 from .intra import (CUBIC_FILTER, HOR_VER_DIST_THRES, MODEDISP2INVSAMPLEDISP,
                     MODEDISP2SAMPLEDISP, PRE_SCALE, wide_angle_correction)
@@ -392,13 +391,13 @@ def tables_to_torch(tables: dict, device) -> dict:
     return out
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def device_tables(w: int, h: int, bitdepth: int, device: str) -> dict:
     """class_tables(w, h, bitdepth) on ``device``, built once per process."""
     return tables_to_torch(class_tables(w, h, bitdepth), torch.device(device))
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def frame_tables(qp: int, device: str) -> dict:
     """Per-QP cost weights ``wts`` [4] and ``mode_bits`` [67], float32 on
     ``device`` (the reference feeds both to its search as float32)."""
@@ -430,13 +429,13 @@ def mts_class_tables(w: int, h: int) -> dict:
             "w": w, "h": h}
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def device_mts_tables(w: int, h: int, device: str) -> dict:
     """mts_class_tables(w, h) on ``device``, built once per process."""
     return tables_to_torch(mts_class_tables(w, h), torch.device(device))
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def mip_matrix(size_id: int, device: str) -> torch.Tensor:
     """The MIP weight matrix of a size id, uint8 [n_modes, red_pred^2,
     2*red_bdry] on ``device``."""
@@ -445,15 +444,15 @@ def mip_matrix(size_id: int, device: str) -> torch.Tensor:
         .to(torch.device(device))
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def mip_mode_bits(n_cand: int, device: str) -> torch.Tensor:
     """The flat 6.0 signalling bits of the n_cand MIP candidates, float32
     on ``device`` (the reference's mip_bits of dispatch_blocks)."""
-    return torch.full((n_cand,), 6.0, dtype=torch.float32,
-                      device=torch.device(device))
+    return torch.from_numpy(np.full(n_cand, 6.0, dtype=np.float32)) \
+        .to(torch.device(device))
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def rough_modes(device: str) -> torch.Tensor:
     """ROUGH_MODES, int32 [35] on ``device``."""
     return torch.from_numpy(ROUGH_MODES.copy()).to(torch.device(device))
@@ -469,7 +468,7 @@ def mvd_bits_table(r: int) -> np.ndarray:
                     dtype=np.float32)
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def device_mvd_bits(r: int, device: str) -> torch.Tensor:
     """mvd_bits_table(r) on ``device``."""
     return torch.from_numpy(mvd_bits_table(r)).to(torch.device(device))
@@ -488,7 +487,7 @@ def frac_penalty(lam_sqrt: float) -> np.ndarray:
     return fpen
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def me_penalties(lam: float, r: int, device: str):
     """(pen [(2r+1)^2], fpen [49]) float32 on ``device``: the full-pel
     penalty make_mv_penalty(r, sqrt(lam)), flattened dy major, and the

@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import device_cache
+
 # odd-frequency basis amplitudes of the DCT-II matrices per size
 DCT2_ODD = {
     2: [64],
@@ -125,14 +127,14 @@ def get_matrix(tr_type: int, n: int) -> np.ndarray:
     raise ValueError(tr_type)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def device_matrix(tr_type: int, n: int, device: str) -> torch.Tensor:
     """get_matrix(tr_type, n) as int8 on ``device``, built once per process."""
     return torch.from_numpy(get_matrix(tr_type, n).astype(np.int8)) \
         .to(torch.device(device))
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def device_matrix32(tr_type: int, n: int, device: str,
                     transpose: bool = False) -> torch.Tensor:
     """get_matrix(tr_type, n), or its transpose, as int32 on ``device``,
