@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import trace
 from ..consts import LCU_WIDTH
 from .cu import NO_SPLIT, QT_SPLIT, CtuNode, split_locs
 
@@ -322,13 +323,15 @@ class PartitionSearch:
 
     def _decide(self, cost, mode) -> list[CtuNode]:
         ctrl = self.ctrl
-        choice, _total = self._dp(cost)
-        # build CTU trees
-        ctus = []
-        for cty in range(ctrl.height_in_lcu):
-            for ctx_ in range(ctrl.width_in_lcu):
-                ctus.append(self._build(ctx_ * LCU_WIDTH, cty * LCU_WIDTH,
-                                        LCU_WIDTH, choice, mode))
+        with trace.span("partition.dp"):
+            choice, _total = self._dp(cost)
+            # build CTU trees
+            ctus = []
+            for cty in range(ctrl.height_in_lcu):
+                for ctx_ in range(ctrl.width_in_lcu):
+                    ctus.append(self._build(ctx_ * LCU_WIDTH,
+                                            cty * LCU_WIDTH, LCU_WIDTH,
+                                            choice, mode))
         return ctus
 
     def _build(self, x, y, s, choice, mode) -> CtuNode:

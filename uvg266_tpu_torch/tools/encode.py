@@ -223,7 +223,9 @@ def _parser() -> argparse.ArgumentParser:
                         "path (encmain.c recon output)")
     p.add_argument("--stats-file", default=None,
                    help="write per-frame stats (JSON lines: poc, type, qp, "
-                        "bits, PSNR) to this path")
+                        "bits, PSNR, the host's ms by stage and by tool, the "
+                        "bytes copied to and from the device) to this "
+                        "path")
     p.add_argument("--threads", type=int, default=1,
                    help="host frame-pipeline width for all-intra encodes "
                         "(the OWF analogue; native phases release the GIL)")
@@ -386,6 +388,9 @@ def main(argv=None) -> int:
     dec_aps: dict = {}
 
     stats_f = open(args.stats_file, "w") if args.stats_file else None
+    if stats_f is not None:
+        from .. import trace
+        trace.start()
     rec_f = open(args.rec_out, "wb") if args.rec_out else None
 
     def frame_source():
@@ -425,6 +430,9 @@ def main(argv=None) -> int:
             if est is not None:
                 line["est_coeff_bits"] = round(est, 1)
                 line["est_vs_actual"] = round(est / max(len(au) * 8, 1), 4)
+            # the frame's stage spans and counters (uvg266_tpu_torch.trace),
+            # taken out of the tracer so that its records do not grow
+            line.update(trace.summary(trace.drain(fs.num)))
             stats_f.write(json.dumps(line) + "\n")
         if args.verify:
             pocs0 = [fs.poc - d for d in fs.ref_pocs_neg]
@@ -487,6 +495,7 @@ def main(argv=None) -> int:
                 handle(result)
     dt = time.time() - t0
     if stats_f is not None:
+        trace.stop()
         stats_f.close()
     if rec_f is not None:
         rec_f.close()
