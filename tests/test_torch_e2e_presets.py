@@ -24,10 +24,12 @@ child process.
 import pytest
 
 from torch_e2e_common import (COMBINED, FUSED, HOSTME, assert_decodes,
-                              assert_same, clip, encode_port, encode_ref,
-                              one_thread, slice_types)
+                              assert_same, clip, encode, encode_port,
+                              encode_ref, one_thread, slice_types)
 from uvg266_tpu.cfg import make_config as ref_make_config
+from uvg266_tpu_torch import trace
 from uvg266_tpu_torch.cfg import PRESETS, make_config
+from uvg266_tpu_torch.control.encoder import Encoder, FramePlanes
 from uvg266_tpu_torch.control.partition import PartitionSearch
 
 pytestmark = pytest.mark.usefixtures(one_thread.__name__)
@@ -92,3 +94,31 @@ def test_preset_as_it_stands_on_the_port(preset):
     assert slice_types(got) == "IPP"
     assert set(calls) == REACHED[preset], calls
     assert_decodes(enc, got)
+
+
+@pytest.mark.parametrize("preset", ("fast", "medium"))
+def test_intra_cus_take_native_recon_under_rdoq(preset):
+    """With rdoq on, every intra CU of the Python finalize takes the C++
+    recon and its C++ rdoq (tracer counters ``intra_native`` and
+    ``intra_python``), and the access units and recon equal those of the
+    Python recon (``force_python_intra_recon``)."""
+    cfg = make_config(preset, **_options(preset))
+    assert cfg.rdoq_enable
+    frames = clip(*_size(preset), N)
+    trace.start()
+    try:
+        enc = Encoder(cfg, device="cpu")
+        got = encode(enc, FramePlanes, frames)
+    finally:
+        recs = trace.stop()
+    calls = {}
+    for (_frame, name), (n, _total) in recs.counters.items():
+        calls[name] = calls.get(name, 0) + n
+    assert calls.get("intra_native", 0) > 0, calls
+    assert calls.get("intra_python", 0) == 0, calls
+    py = Encoder(cfg, device="cpu")
+    py.slice_enc.force_python_intra_recon = True
+    want = encode(py, FramePlanes, frames)
+    assert slice_types(got) == "IPP"
+    assert_same(got, want)
+

@@ -243,10 +243,15 @@ def test_low_delay_medium_stream(no_span_across_yield):
             assert all(s.tid == main and s.parent is None
                        for s in names[n]), (g, n)
         assert names["finalize"][0].attrs["path"] == "python"
-        assert rec.counters[(g, "rdoq")][0] > 0
+        # every intra CU through the C++ recon and its rdoq
+        assert rec.counters[(g, "intra_native")][0] > 0
+        assert (g, "intra_python") not in rec.counters
         entropy_threads.add(names["entropy"][0].tid)
         if g == 0:
             continue
+        # the inter TUs' rdoq: the Python entry, decided in C++
+        assert rec.counters[(g, "rdoq")][0] \
+            == rec.counters[(g, "rdoq_native")][0] > 0
         # P frames: stage D's screen and the host ME's dispatch
         assert len(names["search.dispatch"]) == 2
         assert byid[names["me.fullpel"][0].parent].name == "search.dispatch"
@@ -280,12 +285,18 @@ def test_cli_stats_file_carries_the_stages(tmp_path):
                   "entropy"):
             assert st[n] > 0, (x["num"], n)
         assert x["offcpu_ms"] >= 0
-        # the Python finalize (rdoq on: medium) by tool, and the copies
-        tools = {"rdoq", "intra_recon"} if x["num"] == 0 else \
+        # the Python finalize (rdoq on: medium) by tool, its events, and
+        # the copies: the intra CUs take the C++ recon, the inter TUs'
+        # rdoq calls the C++ rdoq
+        tools = {"intra_recon"} if x["num"] == 0 else \
             {"rdoq", "intra_recon", "inter_recon", "merge_screen", "amvp"}
         assert set(x["tool_ms"]) == tools, x["num"]
         assert all(v > 0 for v in x["tool_ms"].values())
-        assert x["tool_ms"]["rdoq"] < st["finalize"]
+        assert x["tool_ms"].get("rdoq", 0) < st["finalize"]
+        events = {"intra_native"} if x["num"] == 0 else \
+            {"intra_native", "rdoq_native"}
+        assert set(x["calls"]) == events, x["num"]
+        assert all(v > 0 for v in x["calls"].values())
         assert set(x["bytes"]) == {"to_device", "from_device"}
         assert all(v > 0 for v in x["bytes"].values())
     # the CLI switched the tracer off and drained every frame

@@ -2758,10 +2758,11 @@ class SliceEncoder:
         tmvp = TmvpCtx.from_reflists(rl, fs.poc) if cfg.tmvp_enable else None
         num_ref_merge = min(len(rl.l0), len(rl.l1)) \
             if fs.slicetype == SliceType.B else len(rl.l0)
-        # per-CU C++ fast path for plain intra CUs (DCT2, no side tools):
-        # the dominant host cost of inter frames is numpy intra recon
+        # per-CU C++ fast path for plain intra CUs (DCT2, no side tools;
+        # rdoq through the C++ rdoq with the lambda rdl): the dominant host
+        # cost of inter frames is numpy intra recon
         fast_intra_ok = (self.native_entropy and not cfg.trskip_enable
-                         and not cfg.lfnst and not cfg.rdoq_enable
+                         and not cfg.lfnst
                          and not cfg.dep_quant and not cfg.cclm
                          and not cfg.jccr and not cfg.isp and lmcs is None
                          and not cfg.ibc
@@ -2794,15 +2795,21 @@ class SliceEncoder:
                     if cfg.mrl and cu.y % LCU_WIDTH != 0 and not cu.mip_flag \
                             and cu.w <= TR_MAX_WIDTH and cu.h <= TR_MAX_WIDTH:
                         self._search_mrl(cu, cu_map, rec, coded_mask, src)
-                    if fast_intra_ok and cu.tr_idx == 0 and not cu.mip_flag \
-                            and not cu.multi_ref_idx and not cu.local_dual \
-                            and (cu.w == cu.h or (cu.w <= TR_MAX_WIDTH
-                                                  and cu.h <= TR_MAX_WIDTH)):
+                    native = fast_intra_ok and cu.tr_idx == 0 \
+                        and not cu.mip_flag and not cu.multi_ref_idx \
+                        and not cu.local_dual \
+                        and (cu.w == cu.h or (cu.w <= TR_MAX_WIDTH
+                                              and cu.h <= TR_MAX_WIDTH))
+                    if native:
                         from ..native import reconstruct_intra_cu_native
-                        reconstruct_intra_cu_native(
+                        native = reconstruct_intra_cu_native(
                             cu, rec, coded_mask, ctrl.luma_qp_scaled(leaf_qp),
                             ctrl.chroma_qp_scaled(leaf_qp), ctrl.bitdepth,
-                            sh, cfg.wpp, src)
+                            sh, cfg.wpp, src, rdl)
+                    trace.count("intra_native" if native else "intra_python",
+                                1)
+                    if native:
+                        pass                  # reconstructed by the C++
                     elif cfg.isp and not cu.local_dual and not cu.mip_flag \
                             and not cu.multi_ref_idx \
                             and _isp_eligible(cu.w, cu.h):

@@ -21,8 +21,16 @@ from ..bitstream.ctx_tables import NUM_CTX, OFF
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, "entropy.cpp"), os.path.join(_DIR, "recon.cpp"),
          os.path.join(_DIR, "deblock.cpp"), os.path.join(_DIR, "tree.cpp"),
-         os.path.join(_DIR, "sao.cpp"), os.path.join(_DIR, "inter.cpp")]
+         os.path.join(_DIR, "sao.cpp"), os.path.join(_DIR, "inter.cpp"),
+         os.path.join(_DIR, "rdoq.cpp")]
 _LIB = None
+# the same library through a handle that keeps the GIL: rc_rdoq_levels
+# takes microseconds, and a call that released the GIL could hand it to
+# the entropy worker for a whole switch interval
+_LIB_GIL = None
+# rdoq's rate table: every level an int16 coefficient reaches at bit
+# depths up to 12 on blocks up to 32x32 (209715 at 12 bits, QP 0)
+_RDOQ_RATES = 1 << 18
 _LIB_LOCK = threading.Lock()     # one build and load across host threads
 
 
@@ -65,8 +73,9 @@ def get_lib():
 
 
 def _load_lib() -> None:
-    global _LIB
-    lib = ctypes.CDLL(_build_lib())
+    global _LIB, _LIB_GIL
+    path = _build_lib()
+    lib = ctypes.CDLL(path)
     lib.ec_create.restype = ctypes.c_void_p
     for name, argt in [
         ("ec_free", [ctypes.c_void_p]),
@@ -112,8 +121,10 @@ def _load_lib() -> None:
     lib.rc_set_dct2.restype = None
     lib.rc_recon_frame.argtypes = [ctypes.c_void_p] * 7 \
         + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int] \
-        + [ctypes.c_void_p] * 4
-    lib.rc_recon_frame.restype = None
+        + [ctypes.c_void_p] * 4 + [ctypes.c_double]
+    lib.rc_recon_frame.restype = ctypes.c_int
+    lib.rc_set_rdoq_rates.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.rc_set_rdoq_rates.restype = None
     lib.rc_deblock_frame.argtypes = [ctypes.c_void_p] * 3 \
         + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14 \
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] \
@@ -217,6 +228,16 @@ def _load_lib() -> None:
         "cu_qt_root_cbf", "imv_flag", "cu_mvd")], dtype=np.int32)
     lib.tw_set_offsets(toffs.ctypes.data)
     _DCT_KEEP.append(toffs)
+    from ..ops.rdoq import rate_table
+    rates = np.ascontiguousarray(rate_table(_RDOQ_RATES), dtype=np.float64)
+    lib.rc_set_rdoq_rates(rates.ctypes.data, rates.shape[0])
+    gil = ctypes.PyDLL(path)
+    gil.rc_rdoq_levels.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
+        + [ctypes.c_double, ctypes.c_void_p]
+    gil.rc_rdoq_levels.restype = ctypes.c_int
+    gil.rc_rdoq_contract_probe.argtypes = [ctypes.c_double] * 3
+    gil.rc_rdoq_contract_probe.restype = ctypes.c_double
+    _LIB_GIL = gil
     _LIB = lib
 
 
@@ -402,7 +423,7 @@ def recon_frame_native(rec, src, coded_mask: np.ndarray, leaves, qp: int,
         mask_u8.ctypes.data, fw, fh, qp, qp_c, bitdepth,
         1 if signhide else 0, 1 if wpp else 0, larr.ctypes.data, n,
         coeff_y.ctypes.data, coeff_u.ctypes.data, coeff_v.ctypes.data,
-        cbf.ctypes.data)
+        cbf.ctypes.data, 0.0)
 
     if packed:
         return larr, cbf, coeff_y, coeff_u, coeff_v
@@ -439,13 +460,16 @@ def recon_frame_native(rec, src, coded_mask: np.ndarray, leaves, qp: int,
 
 def reconstruct_intra_cu_native(cu, rec, coded_mask: np.ndarray,
                                 qp_y: int, qp_c: int, bitdepth: int,
-                                signhide: bool, wpp: bool, src) -> None:
+                                signhide: bool, wpp: bool, src,
+                                rdoq_lam: float = 0.0) -> bool:
     """Closed-loop recon of ONE plain intra CU (DCT2, no MIP/MRL/CCLM/
     LFNST/JCCR/LMCS) via rc_recon_frame with n=1: per-CU fast path for
     intra CUs inside inter frames (reference: intra_recon_cu,
     intra.c — the Python reconstruct_intra_cu stays the golden model).
     Fills cu.cbf/cu.coeffs exactly like the Python path and updates the
-    recon planes + coded mask in place."""
+    recon planes + coded mask in place. rdoq_lam > 0 quantises with rdoq,
+    as reconstruct_intra_cu's rdoq_lam. False, with nothing changed, where
+    the C++ rdoq leaves a TU of the CU to numpy (rdoq_covers)."""
     lib = get_lib()
     larr = np.array([[cu.x, cu.y, cu.w, cu.h, cu.intra_mode,
                       cu.intra_mode_chroma]], dtype=np.int32)
@@ -463,14 +487,15 @@ def reconstruct_intra_cu_native(cu, rec, coded_mask: np.ndarray,
     def ptr(a):
         return a.ctypes.data if a is not None else None
 
-    lib.rc_recon_frame(
-        ptr(rec.y), ptr(rec.u), ptr(rec.v),
-        ptr(src.y), ptr(src.u), ptr(src.v),
-        coded_mask.view(np.uint8).ctypes.data, fw, fh, qp_y, qp_c,
-        bitdepth, 1 if signhide else 0, 1 if wpp else 0,
-        larr.ctypes.data, 1,
-        coeff_y.ctypes.data, coeff_u.ctypes.data, coeff_v.ctypes.data,
-        cbf.ctypes.data)
+    if lib.rc_recon_frame(
+            ptr(rec.y), ptr(rec.u), ptr(rec.v),
+            ptr(src.y), ptr(src.u), ptr(src.v),
+            coded_mask.view(np.uint8).ctypes.data, fw, fh, qp_y, qp_c,
+            bitdepth, 1 if signhide else 0, 1 if wpp else 0,
+            larr.ctypes.data, 1,
+            coeff_y.ctypes.data, coeff_u.ctypes.data, coeff_v.ctypes.data,
+            cbf.ctypes.data, float(rdoq_lam)):
+        return False
 
     oy = oc = 0
     t = 0
@@ -493,6 +518,26 @@ def reconstruct_intra_cu_native(cu, rec, coded_mask: np.ndarray,
                             buf[oc:oc + cw * chh].reshape(chh, cw).copy()
                 oc += cw * chh
             t += 1
+    return True
+
+
+def rdoq_levels_native(coef: np.ndarray, qp_scaled: int, bitdepth: int,
+                       lam: float):
+    """ops/rdoq.py rdoq_levels through the C++ rc_rdoq_levels: int16
+    levels, or None where numpy has to decide (a shape, QP or level the
+    C++ leaves to numpy). Call get_lib() first."""
+    if coef.ndim != 2:
+        return None
+    if coef.dtype != np.int16 and coef.dtype != np.int32 and coef.size \
+            and (coef.min() < -(1 << 31) or coef.max() >= 1 << 31):
+        return None
+    c = np.ascontiguousarray(coef, dtype=np.int32)
+    h, w = c.shape
+    out = np.empty((h, w), dtype=np.int16)
+    if _LIB_GIL.rc_rdoq_levels(c.ctypes.data, w, h, int(qp_scaled),
+                               int(bitdepth), float(lam), out.ctypes.data):
+        return None
+    return out
 
 
 def sao_stats_native(src: np.ndarray, rec: np.ndarray, lcu: int, wl: int,

@@ -1711,7 +1711,7 @@ void fi_finalize_frame(
         int32_t* cbf3 = out_cbf + (int64_t)jb.i * 3;
         int cbf_y_ = rcn::transform_quant_recon(
             blk_l, pr, jb.w, jb.h, qp_y_scaled, bd, false,
-            signhide != 0, coeff_y + jb.off_y, recb);
+            signhide != 0, coeff_y + jb.off_y, recb, 0.0);
         const int32_t* outp = cbf_y_ ? recb : pr;
         for (int yy = 0; yy < jb.h; ++yy)
             memcpy(rec_y + (int64_t)(jb.y + yy) * fw + jb.x,
@@ -1751,7 +1751,7 @@ void fi_finalize_frame(
                 int32_t* cf = (comp == 0 ? coeff_u : coeff_v) + jb.off_c;
                 int cbf_c = rcn::transform_quant_recon(
                     blkc, prc, cw, ch2, qp_c_scaled, bd, false,
-                    signhide != 0, cf, recb);
+                    signhide != 0, cf, recb, 0.0);
                 const int32_t* oc = cbf_c ? recb : prc;
                 int32_t* rp = comp == 0 ? rec_u : rec_v;
                 for (int yy = 0; yy < ch2; ++yy)
@@ -1842,7 +1842,7 @@ void fi_finalize_frame(
                                   qp_c_scaled, bd, signhide, wpp,
                                   lf.x, lf.y, lf.w, lf.h, d.mode, d.mode,
                                   coeff_y + off_y, coeff_u + off_c,
-                                  coeff_v + off_c, cbf3);
+                                  coeff_v + off_c, cbf3, 0.0);
             c.cu_map.set_cu(lf.x, lf.y, lf.w, lf.h, 1, MInfo());
             // deblock maps: per-TU tiling (32 max TU)
             int tw = lf.w < 32 ? lf.w : 32, th = lf.h < 32 ? lf.h : 32;
@@ -2058,7 +2058,7 @@ void fi_host_screen(const int32_t* src, int fw, int fh,
             int32_t dc = (int32_t)((sum + 128) >> 8);
             for (int i = 0; i < 256; ++i) pred[i] = dc;
             rcn::transform_quant_recon(blk, pred, 16, 16, qp_scaled, bd,
-                                       true, false, coef, rec);
+                                       true, false, coef, rec, 0.0);
             int32_t* dp = pseudo.data() + off;
             for (int yy = 0; yy < 16; ++yy)
                 memcpy(dp + yy * pw, rec + yy * 16,

@@ -470,7 +470,8 @@ void sign_hide(int32_t* qf, const int32_t* cf, const int64_t* du,
 
 int transform_quant_recon(const int32_t* src, const int32_t* pred,
                           int w, int h, int qp, int bd, bool is_intra_slice,
-                          bool signhide, int32_t* coeff_out, int32_t* rec) {
+                          bool signhide, int32_t* coeff_out, int32_t* rec,
+                          double rdoq_lam) {
     const int log2_w = ilog2(w), log2_h = ilog2(h);
     const int16_t* mh = g_dct2[log2_w - 2];
     const int16_t* mv = g_dct2[log2_h - 2];
@@ -516,11 +517,18 @@ int transform_quant_recon(const int32_t* src, const int32_t* pred,
     bool any = false;
     int64_t ac_sum = 0;
     std::vector<int64_t> delta_u(signhide ? w * h : 0);
+    if (rdoq_lam > 0.0)
+        rdoq_levels(coef.data(), w, h, qp, bd, rdoq_lam, coeff_out);
     for (int i = 0; i < w * h; ++i) {
         int64_t a = coef[i] < 0 ? -(int64_t)coef[i] : coef[i];
-        int32_t level = (int32_t)((a * scale + add) >> q_bits);
-        if (level > 32767) level = 32767;
-        coeff_out[i] = coef[i] < 0 ? -level : level;
+        int32_t level;
+        if (rdoq_lam > 0.0) {
+            level = coeff_out[i] < 0 ? -coeff_out[i] : coeff_out[i];
+        } else {
+            level = (int32_t)((a * scale + add) >> q_bits);
+            if (level > 32767) level = 32767;
+            coeff_out[i] = coef[i] < 0 ? -level : level;
+        }
         any |= level != 0;
         ac_sum += level;
         if (signhide)
@@ -676,7 +684,7 @@ void recon_intra_leaf(int32_t* rec_y, int32_t* rec_u, int32_t* rec_v,
                       int signhide, int wpp,
                       int x, int y, int w, int h, int mode, int mode_c,
                       int32_t* coeff_y, int32_t* coeff_u, int32_t* coeff_v,
-                      int32_t* cbf_out) {
+                      int32_t* cbf_out, double rdoq_lam) {
     const int mask_w = (fw + 3) / 4, mask_h = (fh + 3) / 4;
     const int cw_stride = fw >> 1;
     Refs refs;
@@ -706,7 +714,7 @@ void recon_intra_leaf(int32_t* rec_y, int32_t* rec_u, int32_t* rec_v,
                    sizeof(int32_t) * tw);
         int cbf = transform_quant_recon(srcbuf, pred, tw,
                                         th, qp, bd, true, signhide != 0,
-                                        coeff_y + off_y, rec);
+                                        coeff_y + off_y, rec, rdoq_lam);
         cbf_out[0] |= cbf << t;
         for (int yy = 0; yy < th; ++yy)
             memcpy(&rec_y[(ty + yy) * fw + tx],
@@ -735,7 +743,7 @@ void recon_intra_leaf(int32_t* rec_y, int32_t* rec_u, int32_t* rec_v,
             int cbf_c = transform_quant_recon(srcbuf, pred,
                                               cw, ch, qp_c, bd, true,
                                               signhide != 0, coeffs[c],
-                                              rec);
+                                              rec, rdoq_lam);
             cbf_out[1 + c] |= cbf_c << t;
             for (int yy = 0; yy < ch; ++yy)
                 memcpy(&planes[c][(cy + yy) * cw_stride + cx],
@@ -765,17 +773,26 @@ void rc_set_scan(int log2_w, int log2_h, const int32_t* t) {
 // coeff buffers are per-frame flat arrays the caller slices afterward:
 //   coeff_y: sum over leaves of w*h, coeff_u/v: sum of (w/2)*(h/2)
 // cbf_out: [n][3]
-void rc_recon_frame(int32_t* rec_y, int32_t* rec_u, int32_t* rec_v,
-                    const int32_t* src_y, const int32_t* src_u,
-                    const int32_t* src_v,
-                    uint8_t* coded_mask,
-                    int fw, int fh, int qp, int qp_c, int bd, int signhide,
-                    int wpp,
-                    const int32_t* leaves, int n,
-                    int32_t* coeff_y, int32_t* coeff_u, int32_t* coeff_v,
-                    int32_t* cbf_out) {
-    int64_t off_y = 0, off_c = 0;
+// rdoq_lam > 0 quantises with rdoq (transform_quant_recon). Returns 0, or
+// 1 with nothing written where rdoq_levels would leave a TU to numpy.
+int rc_recon_frame(int32_t* rec_y, int32_t* rec_u, int32_t* rec_v,
+                   const int32_t* src_y, const int32_t* src_u,
+                   const int32_t* src_v,
+                   uint8_t* coded_mask,
+                   int fw, int fh, int qp, int qp_c, int bd, int signhide,
+                   int wpp,
+                   const int32_t* leaves, int n,
+                   int32_t* coeff_y, int32_t* coeff_u, int32_t* coeff_v,
+                   int32_t* cbf_out, double rdoq_lam) {
     const bool has_chroma = rec_u != nullptr;
+    for (int i = 0; rdoq_lam > 0.0 && i < n; ++i) {
+        const int32_t* L = leaves + i * 6;
+        const int tw = L[2] < 32 ? L[2] : 32, th = L[3] < 32 ? L[3] : 32;
+        if (!rcn::rdoq_covers(tw, th, qp, bd)
+            || (has_chroma && !rcn::rdoq_covers(tw >> 1, th >> 1, qp_c, bd)))
+            return 1;
+    }
+    int64_t off_y = 0, off_c = 0;
     for (int i = 0; i < n; ++i) {
         const int32_t* L = leaves + i * 6;
         int x = L[0], y = L[1], w = L[2], h = L[3];
@@ -783,10 +800,11 @@ void rc_recon_frame(int32_t* rec_y, int32_t* rec_u, int32_t* rec_v,
                               coded_mask, fw, fh, qp, qp_c, bd, signhide,
                               wpp, x, y, w, h, L[4], L[5],
                               coeff_y + off_y, coeff_u + off_c,
-                              coeff_v + off_c, cbf_out + i * 3);
+                              coeff_v + off_c, cbf_out + i * 3, rdoq_lam);
         off_y += (int64_t)w * h;
         if (has_chroma) off_c += (int64_t)(w >> 1) * (h >> 1);
     }
+    return 0;
 }
 
 }  // extern "C"

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import trace
 from .quant import LOG2, quant_params
 from .scan import GROUP_IDX, coeff_scan_table, log2_sbb_size
 
@@ -50,9 +51,43 @@ def _rate_model(levels: np.ndarray) -> np.ndarray:
     return bits
 
 
+def rate_table(n: int) -> np.ndarray:
+    """_rate_model of the levels 0 .. n-1: the native rdoq's rates, so
+    that its log2 tail rounds as numpy's does."""
+    return _rate_model(np.arange(n, dtype=np.int64))
+
+
+# native.rdoq_levels_native once the library loads, False where it cannot
+_NATIVE = None
+
+
 def rdoq_levels(coef: np.ndarray, qp_scaled: int, bitdepth: int,
                 lam: float, is_intra_slice: bool = True) -> np.ndarray:
-    """RDO-quantize one h x w transform block; returns int16 levels."""
+    """RDO-quantize one h x w transform block; returns int16 levels.
+
+    The native library's C++ rdoq gives rdoq_levels_numpy's levels
+    (tests/test_torch_rdoq_native.py); the numpy function decides where
+    the library does not load, and the blocks the C++ leaves to it."""
+    global _NATIVE
+    if _NATIVE is None:
+        try:
+            from ..native import get_lib, rdoq_levels_native
+            get_lib()
+            _NATIVE = rdoq_levels_native
+        except Exception:
+            _NATIVE = False
+    if _NATIVE:
+        out = _NATIVE(coef, qp_scaled, bitdepth, lam)
+        if out is not None:
+            trace.count("rdoq_native", 1)
+            return out
+    return rdoq_levels_numpy(coef, qp_scaled, bitdepth, lam, is_intra_slice)
+
+
+def rdoq_levels_numpy(coef: np.ndarray, qp_scaled: int, bitdepth: int,
+                      lam: float, is_intra_slice: bool = True) -> np.ndarray:
+    """RDO-quantize one h x w transform block in numpy; returns int16
+    levels."""
     h, w = coef.shape
     log2_w, log2_h = LOG2[w], LOG2[h]
     scale, q_bits, _add = quant_params(qp_scaled, log2_w, log2_h, bitdepth,

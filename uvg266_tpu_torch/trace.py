@@ -24,7 +24,11 @@ its thread, as ``[calls, total]`` under ``(frame, name)``. Counters:
   bytes;
 - ``rdoq``, ``intra_recon``, ``inter_recon``, ``merge_screen``, ``amvp``:
   the Python finalize by tool, nanoseconds (``rdoq`` also inside the
-  recon counters).
+  recon counters);
+- ``intra_native``, ``intra_python``: the Python finalize's intra CUs
+  that the C++ recon reconstructed, and those it did not, one a CU;
+- ``rdoq_native``: Python ``rdoq_levels`` calls that the C++ rdoq
+  decided, one a call.
 
 Spans, by the stage they time (``control/encoder.py`` unless named):
 ``search.dispatch`` (enqueueing a frame's device search),
@@ -46,6 +50,8 @@ import time
 ENABLED = False
 # spans that wait on another worker: ``offcpu`` leaves them out
 WAITS = ("search.wait", "pipe.wait")
+# counters of events, one a call (the others add nanoseconds or bytes)
+EVENTS = ("intra_native", "intra_python", "rdoq_native")
 
 _LOCK = threading.Lock()
 _LOCAL = threading.local()
@@ -258,21 +264,25 @@ def summary(recs: Records) -> dict:
     """One frame's records as the CLI's ``--stats-file`` line carries
     them: ``stage_ms`` {span name: wall ms, summed over its spans; nested
     stages count in their parents too}, ``offcpu_ms`` (``offcpu``),
-    ``tool_ms`` {timed counter: ms} and ``bytes`` {"to_device",
-    "from_device": bytes}."""
+    ``tool_ms`` {timed counter: ms}, ``bytes`` {"to_device",
+    "from_device": bytes} and ``calls`` {event counter: calls}."""
     stage: dict = {}
     for s in recs.spans:
         stage[s.name] = stage.get(s.name, 0) + s.t1 - s.t0
     tool: dict = {}
     nbytes: dict = {}
-    for (_frame, name), (_calls, total) in recs.counters.items():
+    events: dict = {}
+    for (_frame, name), (calls, total) in recs.counters.items():
         if name.endswith("_bytes"):
             key = name[:-len("_bytes")]
             nbytes[key] = nbytes.get(key, 0) + total
+        elif name in EVENTS:
+            events[name] = events.get(name, 0) + calls
         else:
             tool[name] = tool.get(name, 0) + total
     return {"stage_ms": {k: round(v / 1e6, 3)
                          for k, v in sorted(stage.items())},
             "offcpu_ms": round(offcpu(recs.spans)[0] / 1e6, 3),
             "tool_ms": {k: round(v / 1e6, 3) for k, v in sorted(tool.items())},
-            "bytes": dict(sorted(nbytes.items()))}
+            "bytes": dict(sorted(nbytes.items())),
+            "calls": dict(sorted(events.items()))}
